@@ -1,22 +1,22 @@
-"""rt_rs_tpu — a TPU-native wavefront ray tracing framework.
+"""rt_rs_tpu — a wavefront ray tracing framework in JAX.
 
 A from-scratch rebuild of the capabilities of the reference renderer
-``hankotanks/rt_rs`` (Rust + WGSL compute shaders), redesigned for TPU
-hardware:
+``hankotanks/rt_rs`` (Rust + WGSL compute shaders), running on an
+NVIDIA GPU through XLA and Pallas:
 
 * rays are a batch axis (wavefront), not SIMT threads
   (reference: one shader invocation per pixel,
   ``src/lib/state/mod.rs:704-708``);
-* the BVH is a set of flat HBM/VMEM-resident arrays, not pointer-linked
+* the BVH is a set of flat device-resident arrays, not pointer-linked
   nodes (reference: ``src/lib/bvh/mod.rs:11-27``);
 * traversal runs as a Pallas *packet* kernel — per-tile conservative
   chunk culling (interval + per-ray slab refinement) with argsort
-  compaction outside the kernel, dense Möller–Trumbore lattices over
-  (chunk, ray-tile) blocks inside it (reference: per-thread private
+  compaction outside the kernel, Möller–Trumbore lattices over
+  (triangles, rays) blocks inside it, compiled through Triton (reference: per-thread private
   stack DFS, ``src/lib/handlers/bvh.rs:303-350``);
 * shading, shadow rays and the bounce loop are pure jitted JAX
   (reference: ``src/lib/shaders/compute.wgsl:219-293``);
-* multi-chip scaling shards the image across a ``jax.sharding.Mesh``
+* multi-device scaling shards the image across a ``jax.sharding.Mesh``
   (the reference is single-GPU).
 
 Scene JSON, OBJ meshes and precomputed ``*.bvh.json`` checkpoints are

@@ -7,7 +7,7 @@
 JSON schema round-trips byte-compatibly with files produced by the
 reference's ``precompute`` tool (``scenes/teatime.bvh.json``).
 
-TPU-native addition: because the flatten order is preorder, every
+Addition: because the flatten order is preorder, every
 node's *escape* target (where traversal resumes after skipping or
 finishing the node's subtree) has a strictly larger index.  We derive
 ``hit_link`` / ``miss_link`` arrays that turn the per-thread stack DFS

@@ -3,7 +3,7 @@
 The reference can only build its BVH recursively on the CPU and ships
 ``precompute`` to amortize that cost into a ``*.bvh.json`` checkpoint
 (``src/tools/precompute.rs:5-65``).  Here the heavy phases run on the
-TPU — Morton codes, the sort, Karras' parallel hierarchy emit and the
+device — Morton codes, the sort, Karras' parallel hierarchy emit and the
 bottom-up AABB refit (``rt_rs_tpu.ops.lbvh``) — and only the final
 preorder flatten (a pointer-chasing serialization, inherently
 sequential) happens on the host.  The result is a regular

@@ -55,10 +55,10 @@ class Resolution:
     Fixed{size, wg}`` (``src/lib/mod.rs:56-77``) collapses here to an
     optional size plus the parsed ``wg`` value.  The reference's
     workgroup size picks the pixel tile a GPU workgroup covers
-    (``src/lib/mod.rs:79-105``); the TPU analogue is the pixel-block
-    shape a 128-ray packet tile covers (``shade.camera_rays(block=)``)
-    — :meth:`block` maps ``wg_hint`` to it (wg x (128/wg) pixels, so
-    the default wg=16 gives the measured-best 8x16; PERF.md).
+    (``src/lib/mod.rs:79-105``); the analogue here is the pixel-block
+    shape a packet ray tile covers (``shade.camera_rays(block=)``) —
+    :meth:`block` maps ``wg_hint`` to it (wg x (lanes/wg) pixels: the
+    default wg=16 gives 16x16 for 256-ray tiles, 8x16 for 128).
     """
 
     width: int | None = None

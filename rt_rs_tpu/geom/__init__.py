@@ -4,7 +4,7 @@ Host-side (NumPy) counterparts of the reference's GPU POD structs
 (``src/lib/geom/mod.rs``): triangles are index triples plus a material
 id, vertices carry position + normal, materials carry color/albedo/spec.
 Instead of 16/32-byte padded C structs uploaded to storage buffers, the
-TPU-native layout is structure-of-arrays ``jax.Array``s (see
+layout here is structure-of-arrays ``jax.Array``s (see
 ``rt_rs_tpu.scene.Scene.pack``).
 
 JSON (de)serialization keeps the reference's validation semantics: any

@@ -2,7 +2,8 @@
 
 Mirrors the reference's set of ``IntrsHandler`` implementations
 (``src/lib/handlers/mod.rs``): ``blank``, ``naive``, ``bvh``,
-``rf_bvh`` — plus TPU-only additions (``lbvh`` on-device build).
+``rf_bvh`` — plus additions (``pbvh`` packet tracer, ``lbvh``
+on-device build).
 """
 
 from __future__ import annotations

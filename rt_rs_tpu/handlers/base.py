@@ -5,7 +5,7 @@ returns GPU buffers plus a WGSL ``intrs()`` source string that gets
 string-spliced into the compute shader
 (``src/lib/handlers/mod.rs:52-67``, ``src/lib/shaders/mod.rs:31-83``).
 
-The TPU-native equivalent of "shader codegen" is closure capture +
+The JAX equivalent of "shader codegen" is closure capture +
 ``jax.jit`` specialization: a handler builds device arrays (the
 "bind group"), may permute the scene's primitive arrays (the leaf
 reordering of ``handlers/bvh.rs:103-110``), and returns a jittable
@@ -92,16 +92,6 @@ class IntrsHandler(abc.ABC):
 
         return tiled
 
-    def intersect_tiled_rows_fn(
-        self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig
-    ):
-        """Closest-hit that ALSO emits the winning prims' shade-table
-        rows: ``(payload, valid, t_cap=None) -> (t, pid,
-        rows [32, T, r])`` — lets :func:`trace_tiled` skip its XLA row
-        gathers entirely.  ``None`` (default) = unsupported; the trace
-        falls back to gathering."""
-        return None
-
     def intersect_tiled_anyhit_fn(
         self, accel: Any, arrays: SceneArrays, cfg: ComputeConfig
     ):
@@ -111,16 +101,3 @@ class IntrsHandler(abc.ABC):
         7)``.  ``None`` (default) = unsupported; shadow batches then
         use the closest-hit path (identical results)."""
         return None
-
-    def rows_default(self, accel: Any, n_pixels: int) -> bool:
-        """Should the frame take the kernel-emitted-rows branch when the
-        caller didn't force it?  Round 2b measured a ~300K-ray
-        crossover, but the round-3 re-sweep (per-ray refine + shadow
-        cull reshaped the secondary calls the rows path splits) shows
-        rows matching or beating the gather path at EVERY size
-        (experiments/rows_crossover.py: 384x288 5.35 vs 5.41, 640x480
-        10.5 vs 12.0, 1080p 52.6 vs 67.3 ms) — so resident tables
-        default to rows unconditionally.  Backends whose rows path
-        regresses regardless of size (e.g. segmented tables) override
-        this to stay on the gather path."""
-        return True

@@ -10,7 +10,7 @@ Parity with ``BvhIntrs`` (``src/lib/handlers/bvh.rs``):
 * the 48-byte-per-node footprint is reported via stats
   (``bvh.rs:160-163``).
 
-TPU-native redesign of the traversal: the reference shader walks the
+Data-parallel redesign of the traversal: the reference shader walks the
 tree with a per-thread private stack sized to the *node count*
 (``bvh.rs:168-187, 303-350``).  Here traversal is **stackless and
 threaded**: the preorder flatten yields ``hit_link``/``miss_link``
@@ -36,7 +36,6 @@ from __future__ import annotations
 import dataclasses
 import json
 from functools import partial
-from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +45,14 @@ from rt_rs_tpu.bvh import BvhData, build_bvh
 from rt_rs_tpu.config import ComputeConfig
 from rt_rs_tpu.handlers.base import IntrsHandler, IntrsStats
 from rt_rs_tpu.ops.intersect import tri_intersect_pairs
+from rt_rs_tpu.ops.pallas.packet_trace import (
+    TUNED_RAY_TILE,
+    TUNED_TRI_CHUNK,
+    build_tri_chunks,
+    packet_closest_hit,
+    packet_closest_hit_tiled,
+    tag_refine,
+)
 from rt_rs_tpu.scene import Scene
 from rt_rs_tpu.scene.arrays import SceneArrays
 
@@ -117,6 +124,12 @@ class BvhAccel:
     chunks: object = None  # TriChunks | None
 
 
+# What ``backend="auto"`` means for ``bvh`` and ``rf_bvh``: the
+# threaded XLA traversal or the packet tracer over the same leaf order.
+# Chosen by frame time on an NVIDIA H100 (PERF.md).
+AUTO_BACKEND = "packet"
+
+
 class BvhIntrs(IntrsHandler):
     name = "BVH"
 
@@ -133,12 +146,10 @@ class BvhIntrs(IntrsHandler):
         precomputed checkpoint, bvh.rs:54-64), ``eps`` = ``Runtime``,
         neither = ``Default``.
 
-        ``backend``: ``"threaded"`` (the stackless link walk — portable,
-        but XLA gathers make it slow on real TPUs), ``"packet"`` (route
-        intersection through the Pallas packet kernel over the SAME
-        leaf-ordered prims — the BVH/checkpoint still supplies the
-        ordering), or ``"auto"`` (packet on TPU when the scene fits in
-        VMEM, threaded otherwise).
+        ``backend``: ``"threaded"`` (the stackless link walk in plain
+        XLA), ``"packet"`` (route intersection through the packet tracer
+        over the SAME leaf-ordered prims — the BVH/checkpoint still
+        supplies the ordering), or ``"auto"`` (``AUTO_BACKEND``).
 
         ``refine``: per-ray cull refinement policy for the packet
         backend ("off"/"bounces"/"all" — see PacketBvhIntrs)."""
@@ -154,31 +165,17 @@ class BvhIntrs(IntrsHandler):
             raise ValueError(f"unknown refine mode {refine!r}")
         self.refine = refine
 
-    def _tag_refine(self, fn):
-        from rt_rs_tpu.ops.pallas.packet_trace import tag_refine
-
-        return tag_refine(fn, self.refine)
-
-    def _use_packet(self, num_prims: int) -> bool:
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            MAX_VMEM_CHUNKS,
-            TRI_CHUNK,
-        )
-
-        fits = num_prims <= MAX_VMEM_CHUNKS * TRI_CHUNK
-        if self.backend == "packet":
-            return True
-        if self.backend == "threaded":
-            return False
-        return jax.default_backend() == "tpu" and fits
+    def _use_packet(self) -> bool:
+        if self.backend not in ("auto", "packet", "threaded"):
+            raise ValueError(f"unknown bvh backend {self.backend!r}")
+        backend = AUTO_BACKEND if self.backend == "auto" else self.backend
+        return backend == "packet"
 
     @property
     def block_lanes(self) -> int:
         """Rays per packet tile when the packet backend is active; the
         Renderer sizes its pixel-block swizzle to it (harmless for the
         threaded fallback, which is order-invariant)."""
-        from rt_rs_tpu.ops.pallas.packet_trace import TUNED_RAY_TILE
-
         return TUNED_RAY_TILE
 
     def build(self, scene: Scene, arrays: SceneArrays):
@@ -191,16 +188,9 @@ class BvhIntrs(IntrsHandler):
         nodes = accel_from_bvh_data(data, scene)
         arrays = reorder_scene_arrays(arrays, data.indices)
         chunks = None
-        if self._use_packet(scene.num_prims):
-            from rt_rs_tpu.ops.pallas.packet_trace import (
-                TUNED_TRI_CHUNK,
-                build_tri_chunks,
-            )
-
+        if self._use_packet():
             chunks = build_tri_chunks(
-                arrays.pa, arrays.pb, arrays.pc,
-                tri_chunk=TUNED_TRI_CHUNK,
-                shade_rows=np.asarray(arrays.shade_table),
+                arrays.pa, arrays.pb, arrays.pc, tri_chunk=TUNED_TRI_CHUNK
             )
         return BvhAccel(nodes=nodes, chunks=chunks), arrays
 
@@ -209,11 +199,6 @@ class BvhIntrs(IntrsHandler):
 
     def intersect_fn(self, accel: BvhAccel, arrays: SceneArrays, cfg: ComputeConfig):
         if accel.chunks is not None:
-            from rt_rs_tpu.ops.pallas.packet_trace import (
-                TUNED_RAY_TILE,
-                packet_closest_hit,
-            )
-
             return partial(
                 packet_closest_hit,
                 accel.chunks,
@@ -221,7 +206,6 @@ class BvhIntrs(IntrsHandler):
                 t_max=cfg.t_max,
                 eps=cfg.eps,
                 ray_tile=TUNED_RAY_TILE,
-                interpret=jax.default_backend() != "tpu",
             )
         return partial(
             _bvh_intersect,
@@ -238,61 +222,31 @@ class BvhIntrs(IntrsHandler):
         self, accel: BvhAccel, arrays: SceneArrays, cfg: ComputeConfig
     ):
         if accel.chunks is not None:
-            from rt_rs_tpu.ops.pallas.packet_trace import (
-                packet_closest_hit_tiled,
-            )
-
-            return self._tag_refine(partial(
-                packet_closest_hit_tiled,
-                accel.chunks,
-                t_min=cfg.t_min,
-                t_max=cfg.t_max,
-                eps=cfg.eps,
-                interpret=jax.default_backend() != "tpu",
-            ))
+            return packet_tiled_fn(accel.chunks, cfg, self.refine)
         return super().intersect_tiled_fn(accel, arrays, cfg)
-
-    def intersect_tiled_rows_fn(
-        self, accel: BvhAccel, arrays: SceneArrays, cfg: ComputeConfig
-    ):
-        if accel.chunks is None or accel.chunks.attr_t is None:
-            return None
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            packet_closest_hit_tiled,
-            resident_fits,
-        )
-
-        if not resident_fits(accel.chunks, with_attrs=True):
-            return None
-
-        return self._tag_refine(partial(
-            packet_closest_hit_tiled,
-            accel.chunks,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=jax.default_backend() != "tpu",
-            emit_rows=True,
-        ))
 
     def intersect_tiled_anyhit_fn(
         self, accel: BvhAccel, arrays: SceneArrays, cfg: ComputeConfig
     ):
         if accel.chunks is None:
             return None
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            packet_closest_hit_tiled,
-        )
+        return packet_tiled_fn(accel.chunks, cfg, self.refine, any_hit=True)
 
-        return self._tag_refine(partial(
+
+def packet_tiled_fn(chunks, cfg: ComputeConfig, refine: str, **fixed):
+    """The packet tracer's tiled entry over ``chunks``, tagged with the
+    refine policy — the packet backend of ``bvh`` and ``rf_bvh``."""
+    return tag_refine(
+        partial(
             packet_closest_hit_tiled,
-            accel.chunks,
+            chunks,
             t_min=cfg.t_min,
             t_max=cfg.t_max,
             eps=cfg.eps,
-            interpret=jax.default_backend() != "tpu",
-            any_hit=True,
-        ))
+            **fixed,
+        ),
+        refine,
+    )
 
 
 def _node_slab(o, inv_d, bmin, bmax):

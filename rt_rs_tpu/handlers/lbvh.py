@@ -1,20 +1,19 @@
-"""LBVH backend: fully on-device build (TPU-native addition).
+"""LBVH backend: fully on-device build.
 
 No reference counterpart — the reference always builds its BVH on the
 CPU (``src/lib/bvh/aabb.rs``).  This backend sorts primitives by Morton
-code and chunks them for the Pallas packet kernel entirely with device
-ops, so acceleration "construction" is part of the jitted computation:
+code and chunks them for the packet tracer entirely with device ops, so
+acceleration "construction" is part of the jitted computation:
 
 * static scenes: build once at handler setup (device);
 * dynamic scenes: :func:`build_accel_device` is jit-traceable — call it
   inside the frame step with updated vertex positions for a true
-  per-frame rebuild/refit (BASELINE.json "animated teapot" config; see
-  ``tests/test_lbvh.py::test_dynamic_rebuild`` and
+  per-frame rebuild/refit (see ``tests/test_lbvh.py`` and
   ``rt_rs_tpu.renderer.DynamicRenderer``).
 
 The sorted order plays the role of the reference's leaf-contiguous
 reorder (``bvh.rs:103-110``); Morton-adjacent prims are spatially local
-so the packet kernel's 8-triangle chunks stay tight.
+so the packet chunks stay tight.
 """
 
 from __future__ import annotations
@@ -29,105 +28,25 @@ from rt_rs_tpu.config import ComputeConfig
 from rt_rs_tpu.handlers.base import IntrsHandler, IntrsStats
 from rt_rs_tpu.ops.lbvh import morton_codes, morton_order
 from rt_rs_tpu.ops.pallas.packet_trace import (
-    CHUNK_ALIGN,
-    LANES,
-    MAX_VMEM_CHUNKS,
-    TRI_CHUNK,
     TUNED_RAY_TILE,
     TUNED_TRI_CHUNK,
     TriChunks,
+    build_tri_chunks,
+    chunk_footprint,
     packet_closest_hit,
+    packet_closest_hit_tiled,
+    tag_refine,
 )
 from rt_rs_tpu.scene import Scene
 from rt_rs_tpu.scene.arrays import SceneArrays
 
 
-def device_chunks(
-    pa: jax.Array,
-    pb: jax.Array,
-    pc: jax.Array,
-    tri_chunk: int = TUNED_TRI_CHUNK,
-    shade_rows: jax.Array | None = None,
-) -> TriChunks:
-    """jnp version of ``build_tri_chunks`` (jit-traceable).
-
-    Inputs are the *reordered* per-prim corners including the null
-    sentinel row 0 (excluded here, as in the host builder).  The
-    default chunk height is the PERF.md-measured optimum (64 triangles
-    amortize the kernel's per-list-entry fixed cost ~2x vs the round-1
-    8-tri chunks).  ``shade_rows`` ([P+1, 32], the permuted shade
-    table) additionally builds the transposed attribute table that the
-    kernel's emit-rows pass consumes.
-    """
-    pa, pb, pc = pa[1:], pb[1:], pc[1:]
-    p = pa.shape[0]
-    nc = max(1, -(-p // tri_chunk))
-    nc = -(-nc // CHUNK_ALIGN) * CHUNK_ALIGN
-    if nc * tri_chunk > MAX_VMEM_CHUNKS * TRI_CHUNK:
-        raise ValueError(
-            f"{p} triangles -> {nc} chunks x {tri_chunk} exceeds the "
-            f"packet kernel's VMEM limit "
-            f"({MAX_VMEM_CHUNKS * TRI_CHUNK} tris); use the 'bvh' or "
-            "'pbvh' (segmented) handler"
-        )
-    pad = nc * tri_chunk - p
-
-    def padz(x):
-        return jnp.pad(x, ((0, pad), (0, 0)))
-
-    pa_, pb_, pc_ = padz(pa), padz(pb), padz(pc)
-    e1 = pb_ - pa_
-    e2 = pc_ - pa_
-    comp9 = jnp.concatenate([pa_, e1, e2], axis=1)  # [P_pad, 9]
-    comp = jnp.zeros((nc, tri_chunk, LANES), dtype=jnp.float32)
-    comp = comp.at[:, :, :9].set(comp9.reshape(nc, tri_chunk, 9))
-
-    big = jnp.float32(3.0e38)
-    tri_min = jnp.minimum(jnp.minimum(pa_, pb_), pc_)
-    tri_max = jnp.maximum(jnp.maximum(pa_, pb_), pc_)
-    if pad:
-        real = jnp.arange(nc * tri_chunk) < p
-        tri_min = jnp.where(real[:, None], tri_min, big)
-        tri_max = jnp.where(real[:, None], tri_max, -big)
-    bmin = tri_min.reshape(nc, tri_chunk, 3).min(axis=1)
-    bmax = tri_max.reshape(nc, tri_chunk, 3).max(axis=1)
-
-    attr_t = None
-    if shade_rows is not None:
-        rows = jnp.pad(shade_rows[1:], ((0, pad), (0, 0)))
-        at = rows.reshape(nc, tri_chunk, 32).transpose(0, 2, 1)
-        attr_t = jnp.zeros((nc, 32, LANES), dtype=jnp.float32)
-        attr_t = attr_t.at[:, :, :tri_chunk].set(at)
-
-    return TriChunks(
-        comp=comp, bmin=bmin, bmax=bmax, num_chunks=nc, attr_t=attr_t
-    )
-
-
-def chunk_footprint(accel: TriChunks) -> int:
-    """Honest device byte footprint of a chunk table (lane-padded
-    component table + bounds + the optional emit-rows attr table) —
-    the ``IntrsStats`` size shared by the LBVH handler and
-    :class:`rt_rs_tpu.renderer.DynamicRenderer`."""
-    import numpy as _np
-
-    size = int(
-        _np.prod(accel.comp.shape) * 4 + _np.prod(accel.bmin.shape) * 4 * 2
-    )
-    if accel.attr_t is not None:
-        size += int(_np.prod(accel.attr_t.shape) * 4)
-    return size
-
-
 def build_accel_device(
     arrays: SceneArrays,
     tri_chunk: int = TUNED_TRI_CHUNK,
-    with_attrs: bool = False,
 ) -> tuple[TriChunks, SceneArrays]:
     """On-device LBVH 'build': Morton-sort the prims, permute the scene
-    arrays, chunk.  Jit-traceable; call per frame for dynamic scenes.
-    ``with_attrs`` also builds the emit-rows attribute table from the
-    permuted shade table."""
+    arrays, chunk.  Jit-traceable; call per frame for dynamic scenes."""
     pa, pb, pc = arrays.pa[1:], arrays.pb[1:], arrays.pc[1:]
     third = jnp.float32(1.0 / 3.0)
     cent = (pa + pb + pc) * third
@@ -150,36 +69,25 @@ def build_accel_device(
         nc=arrays.nc[perm],
         shade_table=arrays.shade_table[perm],
     )
-    chunks = device_chunks(
-        arrays.pa, arrays.pb, arrays.pc,
-        tri_chunk=tri_chunk,
-        shade_rows=arrays.shade_table if with_attrs else None,
+    chunks = build_tri_chunks(
+        arrays.pa, arrays.pb, arrays.pc, tri_chunk=tri_chunk
     )
     return chunks, arrays
 
 
 class LbvhIntrs(IntrsHandler):
-    """Static-scene LBVH handler on the TUNED packet-kernel config.
-
-    Round-2's version ran the 8-tri-chunk kernel through the base-class
-    AoS adapter (measured ~2x slower, PERF.md); this one builds
-    64-tri chunks + the emit-rows attribute table on device and exposes
-    the same tiled/rows/any-hit entries as the pbvh handler, so the
-    Renderer's fast paths apply unchanged (VERDICT round-2 item 1).
-    """
+    """Static-scene LBVH handler on the tuned packet configuration: the
+    same tiled and any-hit entries as the pbvh handler, so the
+    Renderer's fast paths apply unchanged."""
 
     name = "LBVH"
 
     def __init__(
         self,
-        interpret: bool | None = None,
         tri_chunk: int | None = None,
         ray_tile: int | None = None,
         refine: str = "bounces",
     ):
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        self.interpret = interpret
         self.tri_chunk = (
             TUNED_TRI_CHUNK if tri_chunk is None else tri_chunk
         )
@@ -190,45 +98,15 @@ class LbvhIntrs(IntrsHandler):
             raise ValueError(f"unknown refine mode {refine!r}")
         self.refine = refine
 
-    def _tag_refine(self, fn):
-        from rt_rs_tpu.ops.pallas.packet_trace import tag_refine
-
-        return tag_refine(fn, self.refine)
-
     @property
     def block_lanes(self) -> int:
         """Rays per packet tile (sizes the Renderer's pixel-block)."""
         return self.ray_tile
 
     def build(self, scene: Scene, arrays: SceneArrays):
-        # Attrs only when the table still fits the emit-rows VMEM
-        # budget (the resident_fits with_attrs cap); larger scenes drop
-        # to the gather path exactly like pbvh.  Non-finite shade rows
-        # (degenerate-geometry NaN normals) would poison whole tiles
-        # through the rows matmul — same gather fallback as
-        # build_tri_chunks (this build runs on device, so the host
-        # check happens here, on the concrete packed arrays).
-        import numpy as _np
-
-        from rt_rs_tpu.ops.pallas.packet_trace import rows_budget_ok
-
-        # Byte-true with-attrs cap at the ACTUAL chunk height incl.
-        # CHUNK_ALIGN padding (attr_t is a fixed 16 KB/chunk — at
-        # tc=16 a tris<=8192 gate would build an attr table
-        # resident_fits then rejects, wasting the device memory with
-        # the rows path silently unavailable).
-        tris = arrays.pa.shape[0] - 1
-        with_attrs = rows_budget_ok(tris, self.tri_chunk) and bool(
-            _np.isfinite(_np.asarray(arrays.shade_table)).all()
-        )
-        chunks, arrays = jax.jit(
-            partial(
-                build_accel_device,
-                tri_chunk=self.tri_chunk,
-                with_attrs=with_attrs,
-            )
+        return jax.jit(
+            partial(build_accel_device, tri_chunk=self.tri_chunk)
         )(arrays)
-        return chunks, arrays
 
     def stats(self, accel: TriChunks) -> IntrsStats:
         return IntrsStats(name="LBVH", size=chunk_footprint(accel))
@@ -241,52 +119,23 @@ class LbvhIntrs(IntrsHandler):
             t_max=cfg.t_max,
             eps=cfg.eps,
             ray_tile=self.ray_tile,
-            interpret=self.interpret,
+        )
+
+    def _tiled(self, accel, cfg: ComputeConfig, **fixed):
+        return tag_refine(
+            partial(
+                packet_closest_hit_tiled,
+                accel,
+                t_min=cfg.t_min,
+                t_max=cfg.t_max,
+                eps=cfg.eps,
+                **fixed,
+            ),
+            self.refine,
         )
 
     def intersect_tiled_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            packet_closest_hit_tiled,
-        )
-
-        return self._tag_refine(partial(
-            packet_closest_hit_tiled,
-            accel,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=self.interpret,
-        ))
-
-    def intersect_tiled_rows_fn(self, accel, arrays, cfg: ComputeConfig):
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            packet_closest_hit_tiled,
-            resident_fits,
-        )
-
-        if accel.attr_t is None or not resident_fits(accel, with_attrs=True):
-            return None
-        return self._tag_refine(partial(
-            packet_closest_hit_tiled,
-            accel,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=self.interpret,
-            emit_rows=True,
-        ))
+        return self._tiled(accel, cfg)
 
     def intersect_tiled_anyhit_fn(self, accel, arrays, cfg: ComputeConfig):
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            packet_closest_hit_tiled,
-        )
-
-        return self._tag_refine(partial(
-            packet_closest_hit_tiled,
-            accel,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=self.interpret,
-            any_hit=True,
-        ))
+        return self._tiled(accel, cfg, any_hit=True)

@@ -5,9 +5,9 @@ linear pass over all prims, skipping the null sentinel and the excluded
 prim, keeping the strictly-closest hit in the open
 ``(t_min, t_max)`` window.
 
-TPU design: rather than a per-ray loop, the batch streams prim chunks
+Design: rather than a per-ray loop, the batch streams prim chunks
 through a ``lax.scan`` of all-pairs Möller–Trumbore lattices
-(``rt_rs_tpu.ops.intersect.closest_hit_bruteforce``) — pure VPU work
+(``rt_rs_tpu.ops.intersect.closest_hit_bruteforce``) — elementwise work
 with no gathers and no divergence.
 """
 

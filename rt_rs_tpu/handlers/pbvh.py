@@ -1,49 +1,39 @@
-"""Packet-BVH backend: the TPU fast path (Pallas kernel).
+"""Packet-BVH backend: the flagship path (Pallas packet kernel).
 
 Functionally equivalent to the ``bvh`` backend (same BVH build, same
 leaf reorder, same closest-hit semantics — verified against ``naive``
-in ``tests/test_pbvh.py``), but intersection runs as the Pallas packet
-kernel of :mod:`rt_rs_tpu.ops.pallas.packet_trace`: ray tiles on VPU
-lanes, leaf-ordered 8-triangle chunks on sublanes, conservative
-interval culling instead of per-ray tree descent.
+in ``tests/test_pbvh.py``), but intersection runs through
+:mod:`rt_rs_tpu.ops.pallas.packet_trace`: conservative interval culling
+of leaf-ordered triangle chunks per ray tile, then a loop over each
+tile's compacted chunk list (the Pallas kernel, or its plain ``lax``
+twin).
 
-This is the handler the flagship benchmarks use.  The ``bvh`` handler
-remains the reference-parity backend (stackless threaded traversal, and
-the loader for precomputed ``*.bvh.json`` checkpoints).
+The ``bvh`` handler remains the reference-parity backend (stackless
+threaded traversal, and the loader for precomputed ``*.bvh.json``
+checkpoints).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from functools import partial
-
-import jax
-
-import numpy as np
 
 from rt_rs_tpu.bvh import BvhData, build_bvh
 from rt_rs_tpu.config import ComputeConfig
 from rt_rs_tpu.handlers.base import IntrsHandler, IntrsStats
 from rt_rs_tpu.handlers.bvh import reorder_scene_arrays
 from rt_rs_tpu.ops.pallas.packet_trace import (
-    TriChunks,
+    TUNED_RAY_TILE as DEFAULT_RAY_TILE,
+    TUNED_TRI_CHUNK as DEFAULT_TRI_CHUNK,
+    DualTriChunks,
     build_tri_chunks,
+    chunk_footprint,
+    flat_table,
     packet_closest_hit,
+    packet_closest_hit_tiled,
+    tag_refine,
 )
 from rt_rs_tpu.scene import Scene
 from rt_rs_tpu.scene.arrays import SceneArrays
-
-
-from rt_rs_tpu.ops.pallas.packet_trace import (  # noqa: E402
-    TUNED_RAY_TILE as DEFAULT_RAY_TILE,
-    TUNED_TRI_CHUNK as DEFAULT_TRI_CHUNK,
-)
-
-
-def _default_interpret() -> bool:
-    # Pallas TPU kernels run compiled on TPU; everywhere else (CPU
-    # tests, virtual device meshes) use the interpreter.
-    return jax.default_backend() != "tpu"
 
 
 class PacketBvhIntrs(IntrsHandler):
@@ -55,122 +45,41 @@ class PacketBvhIntrs(IntrsHandler):
         target_item_count: int = 2,
         data: BvhData | None = None,
         path: str | None = None,
-        interpret: bool | None = None,
         cull_block: int | None = None,
         ray_tile: int | None = None,
         tri_chunk: int | None = None,
         tri_chunk_fine: int | None = None,
-        streaming_mode: str = "segmented",
-        chain: bool = True,
         refine: str = "bounces",
-        collapse: bool = True,
-        early_exit: bool = False,
-        seg_order: tuple[int, ...] | None = None,
+        loop: str = "kernel",
     ):
+        """``refine``: per-ray cull refinement policy —
+        "bounces" (default) lets trace_tiled enable it on
+        secondary/shadow batches, where tile-interval culling collapses
+        under ray divergence; "all" forces it on every call; "off"
+        disables it.  ``tri_chunk_fine`` adds a second, finer chunk
+        table that serves the refined batches (see DualTriChunks).
+        ``loop`` picks the chunk loop: "kernel" (Pallas) or "lax"."""
         self.eps = eps
         self.target_item_count = target_item_count
         self._data = data
         if path is not None:
             self._data = BvhData.load(path)
-        self.interpret = (
-            _default_interpret() if interpret is None else interpret
-        )
         self.cull_block = cull_block
         self.ray_tile = ray_tile
         self.tri_chunk = tri_chunk
-        # Dual-granularity tables (resident scenes only): a second,
-        # finer chunk table serving the per-ray-refined bounce/shadow
-        # batches, where finer chunks cut swept tri-slots ~2x at the
-        # same exact results (see DualTriChunks).  None = single table.
         self.tri_chunk_fine = tri_chunk_fine
-        if streaming_mode not in ("segmented", "dma"):
-            raise ValueError(f"unknown streaming_mode {streaming_mode!r}")
-        self.streaming_mode = streaming_mode
-        # Cross-segment cap/validity chaining (front-to-back pruning;
-        # exact — see packet_closest_hit_segmented_tiled).  Knob for
-        # A/B measurement only.
-        self.chain = chain
-        # Per-ray cull refinement (chunk_overlap_mask_perray_cm):
-        # "bounces" (default) lets trace_tiled enable it on
-        # secondary/shadow batches, where tile-interval culling
-        # collapses under ray divergence; "all" forces it on every
-        # call (incl. coherent primaries — for measurement); "off"
-        # disables (round-2 behavior).
         if refine not in ("off", "bounces", "all"):
             raise ValueError(f"unknown refine mode {refine!r}")
         self.refine = refine
-        # Dead-group block-copy elision in the Pallas pipeline
-        # (packet_closest_hit_tiled collapse=; exact by contract,
-        # gated on TPU by tools/tpu_check.py).  Knob for A/B only.
-        self.collapse = collapse
-        # Front-to-back sorted lists + in-loop exit (round-5
-        # prototype; bit-exact, tests/test_pbvh.py).  A/B knob.
-        self.early_exit = early_exit
-        # Segment visit order (segmented tables only): a static
-        # permutation; output-exact for ANY permutation (lexicographic
-        # (t, pid) merge — packet_closest_hit_segmented_tiled).
-        # Camera-front-to-back maximizes chain pruning (-22% entries
-        # on the 50K canyon side-on, experiments/seg_order_ab.py);
-        # Renderer(seg_order="auto") picks it per frame.
-        self.seg_order = seg_order
+        if loop not in ("kernel", "lax"):
+            raise ValueError(f"unknown chunk loop {loop!r}")
+        self.loop = loop
         self.bvh_data: BvhData | None = self._data
-
-    def _tag_refine(self, fn):
-        """Mark a tiled-entry partial with the refine policy (shared
-        helper; see packet_trace.tag_refine)."""
-        from rt_rs_tpu.ops.pallas.packet_trace import tag_refine
-
-        return tag_refine(fn, self.refine)
-
-    def _dual_dispatch(self, accel, **fixed):
-        """Refine-keyed table dispatch for DualTriChunks: primaries
-        (refine=False) sweep the coarse table, per-ray-refined
-        bounce/shadow batches the fine one.  Bit-consistent — see
-        DualTriChunks.  Works for resident AND segmented tables (the
-        segmented entry additionally threads the chain knob)."""
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            SegmentedTriChunks,
-            packet_closest_hit_segmented_tiled,
-            packet_closest_hit_tiled,
-        )
-
-        if isinstance(accel.coarse, SegmentedTriChunks):
-            base = packet_closest_hit_segmented_tiled
-            fixed = dict(fixed, chain=self.chain)
-            # seg_order permutes COARSE segments; the fine table (no
-            # attr slices -> larger segments) generally has a
-            # different segment count, so it only shares the order
-            # when the counts happen to match — otherwise it keeps
-            # build order (exact either way; order is a perf hint).
-            so = self.seg_order
-            coarse = partial(
-                base, accel.coarse, seg_order=so, **fixed
-            )
-            if so is not None and len(accel.fine.segments) != len(so):
-                so = None
-            fine = partial(base, accel.fine, seg_order=so, **fixed)
-            def fn(payload, valid, t_cap=None, refine=False, **kw):
-                tbl = fine if refine else coarse
-                return tbl(payload, valid, t_cap, refine=refine, **kw)
-
-            return fn
-        base = packet_closest_hit_tiled
-        coarse = partial(base, accel.coarse, **fixed)
-        fine = partial(base, accel.fine, **fixed)
-
-        def fn(payload, valid, t_cap=None, refine=False, **kw):
-            tbl = fine if refine else coarse
-            return tbl(payload, valid, t_cap, refine=refine, **kw)
-
-        return fn
 
     @property
     def block_lanes(self) -> int:
         """Rays per packet tile — the Renderer sizes its pixel-block
-        swizzle to put exactly one 2-D block in each tile.  The DMA
-        streaming kernel has a fixed 128-lane tile."""
-        if self.streaming_mode == "dma":
-            return 128
+        swizzle to put exactly one 2-D block in each tile."""
         return DEFAULT_RAY_TILE if self.ray_tile is None else self.ray_tile
 
     def build(self, scene: Scene, arrays: SceneArrays):
@@ -181,288 +90,56 @@ class PacketBvhIntrs(IntrsHandler):
             )
         self.bvh_data = data
         arrays = reorder_scene_arrays(arrays, data.indices)
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            MAX_VMEM_CHUNKS,
-            TRI_CHUNK,
-        )
-
-        n_tris = arrays.pa.shape[0] - 1  # minus the null sentinel
-        self._streaming = n_tris > MAX_VMEM_CHUNKS * TRI_CHUNK
-        # 64-triangle chunks are the measured optimum for both kernels:
-        # they amortize the per-list-entry fixed cost that dominated the
-        # 8-tri layout (see PERF.md).  The streaming kernel's 256-tri
-        # DMA blocks hold 4 of them.
         tri_chunk = (
             DEFAULT_TRI_CHUNK if self.tri_chunk is None else self.tri_chunk
         )
-        # Resident AND segmented tables carry the shade-attribute table
-        # so the kernel can emit hit rows (skipping the XLA row
-        # gathers); only the DMA-streaming table skips it (that kernel
-        # has no rows pass).
-        dma = self._streaming and self.streaming_mode == "dma"
         chunks = build_tri_chunks(
-            arrays.pa, arrays.pb, arrays.pc,
-            max_chunks=None, tri_chunk=tri_chunk,
-            shade_rows=(None if dma else np.asarray(arrays.shade_table)),
+            arrays.pa, arrays.pb, arrays.pc, tri_chunk=tri_chunk
         )
-        # The optional fine table (divergent refine batches) carries NO
-        # attr table: rows calls fall back to the coarse table (still
-        # exact), keeping the fine table at the plain VMEM cap and its
-        # segments at full size.
-        fine = None
-        if self.tri_chunk_fine is not None and not dma:
-            from rt_rs_tpu.ops.pallas.packet_trace import DualTriChunks
-
-            fine = build_tri_chunks(
-                arrays.pa, arrays.pb, arrays.pc,
-                max_chunks=None, tri_chunk=self.tri_chunk_fine,
-            )
-        if self._streaming and self.streaming_mode == "segmented":
-            # Pre-slice on concrete arrays so the per-frame graph
-            # carries no table-slice copies.  Segments are sized to the
-            # with-attrs VMEM cap so each can run the rows kernel.
-            from rt_rs_tpu.ops.pallas.packet_trace import split_chunks
-
-            segs = split_chunks(chunks)
-            if fine is not None:
-                return (
-                    DualTriChunks(coarse=segs, fine=split_chunks(fine)),
-                    arrays,
-                )
-            return segs, arrays
-        if fine is not None:
-            return DualTriChunks(coarse=chunks, fine=fine), arrays
-        return chunks, arrays
+        if self.tri_chunk_fine is None:
+            return chunks, arrays
+        fine = build_tri_chunks(
+            arrays.pa, arrays.pb, arrays.pc, tri_chunk=self.tri_chunk_fine
+        )
+        return DualTriChunks(coarse=chunks, fine=fine), arrays
 
     def stats(self, accel) -> IntrsStats:
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            DualTriChunks,
-            SegmentedTriChunks,
-        )
+        return IntrsStats(name="Packet-BVH", size=chunk_footprint(accel))
 
-        # Honest device footprint: the lane-padded chunk table
-        # [Nc, tc, 128] f32 (512 B/tri) + bounds — what actually
-        # occupies VMEM/HBM, comparable with BVH's 48 B/node and RF's
-        # 16 B/record numbers.  Dual tables report both.
-        def flat(a):
-            return (
-                a.segments if isinstance(a, SegmentedTriChunks) else (a,)
-            )
-
-        if isinstance(accel, DualTriChunks):
-            parts = flat(accel.coarse) + flat(accel.fine)
-        else:
-            parts = flat(accel)
-        size = int(
-            sum(
-                np.prod(p.comp.shape) * 4
-                + np.prod(p.bmin.shape) * 4 * 2
-                + (0 if p.attr_t is None else np.prod(p.attr_t.shape) * 4)
-                for p in parts
-            )
-        )
-        return IntrsStats(name="Packet-BVH", size=size)
+    def _kwargs(self, cfg: ComputeConfig) -> dict:
+        kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, loop=self.loop)
+        if self.cull_block is not None:
+            kw["cull_block"] = self.cull_block
+        return kw
 
     def intersect_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            DualTriChunks,
-            SegmentedTriChunks,
-        )
-
-        if isinstance(accel, DualTriChunks):
-            accel = accel.coarse  # the AoS adapter has no refine split
-        if isinstance(accel, SegmentedTriChunks):
-            # The resident kernel per VMEM-sized pre-sliced segment,
-            # with per-tile exact culling.
-            from rt_rs_tpu.ops.pallas.packet_trace import (
-                packet_closest_hit_segmented,
-            )
-
-            kwargs = {"ray_tile": self.block_lanes}
-            if self.cull_block is not None:
-                kwargs["cull_block"] = self.cull_block
-            return partial(
-                packet_closest_hit_segmented,
-                accel,
-                t_min=cfg.t_min,
-                t_max=cfg.t_max,
-                eps=cfg.eps,
-                interpret=self.interpret,
-                **kwargs,
-            )
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            MAX_VMEM_CHUNKS,
-            TRI_CHUNK,
-        )
-
-        if accel.num_chunks * accel.comp.shape[1] > MAX_VMEM_CHUNKS * TRI_CHUNK:
-            # Hand-rolled double-buffered DMA walk of per-group block
-            # lists (streaming_mode="dma"; kept for comparison —
-            # MEASURED slower than the segmented path, see PERF.md).
-            from rt_rs_tpu.ops.pallas.packet_stream import (
-                stream_closest_hit,
-            )
-
-            return partial(
-                stream_closest_hit,
-                accel,
-                t_min=cfg.t_min,
-                t_max=cfg.t_max,
-                eps=cfg.eps,
-                interpret=self.interpret,
-            )
-        kwargs = {"ray_tile": self.block_lanes}
-        if self.cull_block is not None:
-            kwargs["cull_block"] = self.cull_block
         return partial(
             packet_closest_hit,
-            accel,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=self.interpret,
-            **kwargs,
+            flat_table(accel),  # the AoS adapter has no refine split
+            ray_tile=self.block_lanes,
+            **self._kwargs(cfg),
         )
+
+    def _tiled(self, accel, cfg: ComputeConfig, **fixed):
+        kw = dict(self._kwargs(cfg), **fixed)
+        if not isinstance(accel, DualTriChunks):
+            return tag_refine(
+                partial(packet_closest_hit_tiled, accel, **kw), self.refine
+            )
+        # Refine-keyed table dispatch: primaries (refine=False) sweep the
+        # coarse table, per-ray-refined bounce/shadow batches the fine
+        # one (bit-consistent — see DualTriChunks).
+        coarse = partial(packet_closest_hit_tiled, accel.coarse, **kw)
+        fine = partial(packet_closest_hit_tiled, accel.fine, **kw)
+
+        def fn(payload, valid, t_cap=None, refine=False, **call_kw):
+            tbl = fine if refine else coarse
+            return tbl(payload, valid, t_cap, refine=refine, **call_kw)
+
+        return tag_refine(fn, self.refine)
 
     def intersect_tiled_fn(self, accel, arrays: SceneArrays, cfg: ComputeConfig):
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            MAX_VMEM_CHUNKS,
-            TRI_CHUNK,
-            DualTriChunks,
-            SegmentedTriChunks,
-            packet_closest_hit_segmented_tiled,
-            packet_closest_hit_tiled,
-        )
-
-        kwargs = {"collapse": self.collapse,
-                  "early_exit": self.early_exit}
-        if self.cull_block is not None:
-            kwargs["cull_block"] = self.cull_block
-        if isinstance(accel, DualTriChunks):
-            return self._tag_refine(self._dual_dispatch(
-                accel, t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
-                interpret=self.interpret, **kwargs,
-            ))
-        if isinstance(accel, SegmentedTriChunks):
-            fn = packet_closest_hit_segmented_tiled
-            kwargs["chain"] = self.chain
-            kwargs["seg_order"] = self.seg_order
-        elif accel.num_chunks * accel.comp.shape[1] > MAX_VMEM_CHUNKS * TRI_CHUNK:
-            # DMA streaming has no tiled entry; adapt the AoS path.
-            return super().intersect_tiled_fn(accel, arrays, cfg)
-        else:
-            fn = packet_closest_hit_tiled
-        return self._tag_refine(partial(
-            fn,
-            accel,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=self.interpret,
-            **kwargs,
-        ))
-
-    def intersect_tiled_rows_fn(self, accel, arrays, cfg: ComputeConfig):
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            DualTriChunks,
-            SegmentedTriChunks,
-            TriChunks,
-            packet_closest_hit_segmented_tiled,
-            packet_closest_hit_tiled,
-            resident_fits,
-        )
-
-        kwargs = {"collapse": self.collapse,
-                  "early_exit": self.early_exit}
-        if self.cull_block is not None:
-            kwargs["cull_block"] = self.cull_block
-        if isinstance(accel, DualTriChunks):
-            # The fine table carries no attr table (build), so rows
-            # calls run entirely on the coarse table — the Dual rows
-            # fn IS the single-table rows fn (still exact; only the
-            # non-rows bounce/shadow calls ride the fine table).
-            return self.intersect_tiled_rows_fn(accel.coarse, arrays, cfg)
-        if isinstance(accel, SegmentedTriChunks):
-            # Per-segment rows + min-t winner select (still bit-exact;
-            # see packet_closest_hit_segmented_tiled).
-            if any(s.attr_t is None for s in accel.segments):
-                return None
-            fn = packet_closest_hit_segmented_tiled
-            kwargs["chain"] = self.chain
-            kwargs["seg_order"] = self.seg_order
-        elif isinstance(accel, TriChunks) and accel.attr_t is not None:
-            if not resident_fits(accel, with_attrs=True):
-                return None
-            fn = packet_closest_hit_tiled
-        else:
-            return None
-        return self._tag_refine(partial(
-            fn,
-            accel,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=self.interpret,
-            emit_rows=True,
-            **kwargs,
-        ))
-
-    def rows_default(self, accel, n_pixels: int) -> bool:
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            DualTriChunks,
-            SegmentedTriChunks,
-        )
-
-        if isinstance(accel, DualTriChunks):
-            accel = accel.coarse  # rows always run on the coarse table
-        if isinstance(accel, SegmentedTriChunks):
-            # Per-segment row emission + winner select LOSES on real
-            # TPU at every size measured (50K-tri 640x480: 273 -> 334
-            # ms static — the frame is intersect-bound and rows cost
-            # scales with segment count; PERF.md round 3).  Segmented
-            # scenes stay on the gather path unless explicitly forced.
-            return False
-        return super().rows_default(accel, n_pixels)
+        return self._tiled(accel, cfg)
 
     def intersect_tiled_anyhit_fn(self, accel, arrays, cfg: ComputeConfig):
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            DualTriChunks,
-            SegmentedTriChunks,
-            TriChunks,
-            packet_closest_hit_segmented_tiled,
-            packet_closest_hit_tiled,
-            resident_fits,
-        )
-
-        kwargs = {"collapse": self.collapse,
-                  "early_exit": self.early_exit}
-        if self.cull_block is not None:
-            kwargs["cull_block"] = self.cull_block
-        if isinstance(accel, DualTriChunks):
-            if isinstance(accel.coarse, TriChunks) and not resident_fits(
-                accel.coarse
-            ):
-                return None
-            return self._tag_refine(self._dual_dispatch(
-                accel, t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
-                interpret=self.interpret, any_hit=True, **kwargs,
-            ))
-        if isinstance(accel, SegmentedTriChunks):
-            fn = packet_closest_hit_segmented_tiled  # OR-merged blocked
-            kwargs["chain"] = self.chain
-            kwargs["seg_order"] = self.seg_order
-        elif isinstance(accel, TriChunks) and resident_fits(accel):
-            fn = packet_closest_hit_tiled
-        else:
-            # The DMA-streaming table has no resident any-hit entry.
-            return None
-        return self._tag_refine(partial(
-            fn,
-            accel,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=self.interpret,
-            any_hit=True,
-            **kwargs,
-        ))
+        return self._tiled(accel, cfg, any_hit=True)

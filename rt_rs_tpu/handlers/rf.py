@@ -13,7 +13,7 @@ assume reordered prims (the reference's RF handler leaves
 payload slots, with 0 = empty (rf.rs:429-441).  The threaded backend
 preserves that exactly.  The packet backend reorders the scene arrays
 to leaf order internally (invisible to the format/footprint story, and
-it avoids a per-call id remap — PERF.md "rf_bvh remap" entry); hit ids
+it avoids a per-call id remap); hit ids
 are then leaf-space rows of the *returned* arrays, exactly like
 ``handlers/bvh.py``.
 
@@ -38,8 +38,14 @@ from rt_rs_tpu.bvh import BvhData, build_bvh
 from rt_rs_tpu.bvh.rf import RfData, pack_rf, unpack_rf
 from rt_rs_tpu.config import ComputeConfig
 from rt_rs_tpu.handlers.base import IntrsHandler, IntrsStats
-from rt_rs_tpu.handlers.bvh import _node_slab
+from rt_rs_tpu.handlers.bvh import AUTO_BACKEND, _node_slab, packet_tiled_fn
 from rt_rs_tpu.ops.intersect import tri_intersect_pairs
+from rt_rs_tpu.ops.pallas.packet_trace import (
+    TUNED_RAY_TILE,
+    TUNED_TRI_CHUNK,
+    build_tri_chunks,
+    packet_closest_hit,
+)
 from rt_rs_tpu.scene import Scene
 from rt_rs_tpu.scene.arrays import SceneArrays
 
@@ -83,11 +89,10 @@ class RfBvhIntrs(IntrsHandler):
         reference (rf.rs:64) but exposed here for experiments.
 
         ``backend``: ``"threaded"`` walks the packed records with the
-        f16 bounds (the format-faithful path; slow on real TPUs because
-        of XLA gathers), ``"packet"`` routes intersection through the
-        Pallas kernel over leaf-reordered scene arrays (identical
-        images; the packed records still define footprint + structure),
-        ``"auto"`` picks packet on TPU when the scene fits in VMEM."""
+        f16 bounds (the format-faithful path), ``"packet"`` routes
+        intersection through the packet tracer over leaf-reordered
+        scene arrays (identical images; the packed records still define
+        footprint + structure), ``"auto"`` is ``bvh.AUTO_BACKEND``."""
         self.eps = eps
         self.target_item_count = target_item_count
         self.backend = backend
@@ -99,18 +104,11 @@ class RfBvhIntrs(IntrsHandler):
             raise ValueError(f"unknown refine mode {refine!r}")
         self.refine = refine
 
-    def _tag_refine(self, fn):
-        from rt_rs_tpu.ops.pallas.packet_trace import tag_refine
-
-        return tag_refine(fn, self.refine)
-
     @property
     def block_lanes(self) -> int:
         """Rays per packet tile when the packet backend is active; the
         Renderer sizes its pixel-block swizzle to it (harmless for the
         threaded fallback, which is order-invariant)."""
-        from rt_rs_tpu.ops.pallas.packet_trace import TUNED_RAY_TILE
-
         return TUNED_RAY_TILE
 
     def build(self, scene: Scene, arrays: SceneArrays):
@@ -132,31 +130,20 @@ class RfBvhIntrs(IntrsHandler):
         bmax = un["bmax"][node_rows]
         payload = un["leaf_prims"][node_rows]  # [N, 8]
 
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            MAX_VMEM_CHUNKS,
-            TRI_CHUNK,
-            build_tri_chunks,
-        )
-
-        use_packet = self.backend == "packet" or (
-            self.backend == "auto"
-            and jax.default_backend() == "tpu"
-            and scene.num_prims <= MAX_VMEM_CHUNKS * TRI_CHUNK
-        )
+        if self.backend not in ("auto", "packet", "threaded"):
+            raise ValueError(f"unknown rf_bvh backend {self.backend!r}")
+        backend = AUTO_BACKEND if self.backend == "auto" else self.backend
         chunks = None
-        if use_packet:
+        if backend == "packet":
             from rt_rs_tpu.handlers.bvh import reorder_scene_arrays
-            from rt_rs_tpu.ops.pallas.packet_trace import TUNED_TRI_CHUNK
 
             # Leaf-reorder the scene arrays (internal to the packet
             # path; the RF records/footprint are unaffected) so the
-            # kernel's chunk-space ids ARE the scene-array rows — no
-            # per-call remap gathers (PERF.md).
+            # chunk-space ids ARE the scene-array rows — no per-call
+            # remap gathers.
             arrays = reorder_scene_arrays(arrays, data.indices)
             chunks = build_tri_chunks(
-                arrays.pa, arrays.pb, arrays.pc,
-                tri_chunk=TUNED_TRI_CHUNK,
-                shade_rows=np.asarray(arrays.shade_table),
+                arrays.pa, arrays.pb, arrays.pc, tri_chunk=TUNED_TRI_CHUNK
             )
 
         hit_link, miss_link = data.escape_links()
@@ -180,11 +167,6 @@ class RfBvhIntrs(IntrsHandler):
 
     def intersect_fn(self, accel: RfAccel, arrays: SceneArrays, cfg: ComputeConfig):
         if accel.chunks is not None:
-            from rt_rs_tpu.ops.pallas.packet_trace import (
-                TUNED_RAY_TILE,
-                packet_closest_hit,
-            )
-
             # arrays were leaf-reordered in build(), so chunk-space ids
             # line up with the scene arrays — excl/pid need no remap.
             return partial(
@@ -194,7 +176,6 @@ class RfBvhIntrs(IntrsHandler):
                 t_max=cfg.t_max,
                 eps=cfg.eps,
                 ray_tile=TUNED_RAY_TILE,
-                interpret=jax.default_backend() != "tpu",
             )
         return partial(
             _rf_intersect,
@@ -211,61 +192,15 @@ class RfBvhIntrs(IntrsHandler):
         self, accel: RfAccel, arrays: SceneArrays, cfg: ComputeConfig
     ):
         if accel.chunks is not None:
-            from rt_rs_tpu.ops.pallas.packet_trace import (
-                packet_closest_hit_tiled,
-            )
-
-            return self._tag_refine(partial(
-                packet_closest_hit_tiled,
-                accel.chunks,
-                t_min=cfg.t_min,
-                t_max=cfg.t_max,
-                eps=cfg.eps,
-                interpret=jax.default_backend() != "tpu",
-            ))
+            return packet_tiled_fn(accel.chunks, cfg, self.refine)
         return super().intersect_tiled_fn(accel, arrays, cfg)
-
-    def intersect_tiled_rows_fn(
-        self, accel: RfAccel, arrays: SceneArrays, cfg: ComputeConfig
-    ):
-        if accel.chunks is None or accel.chunks.attr_t is None:
-            return None
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            packet_closest_hit_tiled,
-            resident_fits,
-        )
-
-        if not resident_fits(accel.chunks, with_attrs=True):
-            return None
-
-        return self._tag_refine(partial(
-            packet_closest_hit_tiled,
-            accel.chunks,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=jax.default_backend() != "tpu",
-            emit_rows=True,
-        ))
 
     def intersect_tiled_anyhit_fn(
         self, accel: RfAccel, arrays: SceneArrays, cfg: ComputeConfig
     ):
         if accel.chunks is None:
             return None
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            packet_closest_hit_tiled,
-        )
-
-        return self._tag_refine(partial(
-            packet_closest_hit_tiled,
-            accel.chunks,
-            t_min=cfg.t_min,
-            t_max=cfg.t_max,
-            eps=cfg.eps,
-            interpret=jax.default_backend() != "tpu",
-            any_hit=True,
-        ))
+        return packet_tiled_fn(accel.chunks, cfg, self.refine, any_hit=True)
 
 
 def _rf_intersect(

@@ -19,9 +19,9 @@ Missing intersections are encoded exactly like ``intrs_empty``
 (``compute.wgsl:185-187``): ``t = t_max + 1`` and prim id ``0`` (the
 null sentinel).
 
-Design note (TPU): everything here is expressed over *batches* — rays
+Design note: everything here is expressed over *batches* — rays
 ``[N, 3]`` against triangle chunks ``[C, 3]`` producing ``[N, C]``
-lattices of VPU-friendly elementwise math.  There is no per-ray control
+lattices of elementwise math.  There is no per-ray control
 flow; validity is a mask.
 """
 

@@ -1,8 +1,8 @@
 """On-device LBVH construction (Morton codes + sort + Karras emit).
 
 The reference builds its BVH recursively on the CPU and uploads it
-(``src/lib/bvh/aabb.rs``); for runtime/dynamic scenes the TPU-native
-answer is a linear BVH built *on device* inside the jitted step
+(``src/lib/bvh/aabb.rs``); for runtime/dynamic scenes the answer
+here is a linear BVH built *on device* inside the jitted step
 (BASELINE.json north star):
 
 1. quantize triangle centroids to a 30-bit Morton code (10 bits/axis);

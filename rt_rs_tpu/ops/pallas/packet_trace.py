@@ -1,39 +1,36 @@
-"""Packet ray-tracing kernel: ray tiles vs leaf-ordered triangle chunks.
+"""Packet ray tracing: ray tiles vs leaf-ordered triangle chunks.
 
-This is the TPU-native replacement for the reference's per-thread BVH
-stack DFS (``src/lib/handlers/bvh.rs:303-350``).  SIMT divergence has no
-TPU analogue, so the traversal is restructured around what the VPU is
-good at — dense 8x128 lattices of f32 math — and what it is bad at is
-removed entirely (no per-ray gathers, no stacks, no data-dependent
-branching inside the tile):
+This replaces the reference's per-thread BVH stack walk
+(``src/lib/handlers/bvh.rs:303-350``) with a data-parallel cull plus a
+short loop per ray tile:
 
 * Primitives are kept in BVH leaf order (the reference's reorder,
-  ``bvh.rs:103-110``) and grouped into *chunks of 8 consecutive
-  triangles*; consecutive leaves are spatially adjacent, so chunk AABBs
-  stay tight.  Chunk data is SoA, transposed to ``[8, Nc]`` so a chunk
-  loads as one (8, 1) sublane vector.
-* Rays are processed in *tiles of ``ray_tile``* (lane dimension,
-  default 128).  For every surviving (tile, chunk) pair the kernel
-  evaluates all ``tri_chunk x ray_tile`` ray-triangle Möller–Trumbore
-  tests as ~40 VPU ops on (tri_chunk, ray_tile) registers — full
-  vector utilization, zero divergence.  Both sizes are tunable: the
-  kernel's cost is ~0.4 us fixed per tile + ~70 cycles fixed per list
-  entry + the math, so bigger chunks amortize overhead against looser
-  culling (measured optimum tri_chunk=64 at 128-ray tiles; PERF.md).
-* Which chunks a tile must test is decided *outside* the kernel by
-  conservative interval arithmetic (per-tile ray origin/inv-dir bounds
-  vs chunk AABBs — a dense ``[T, Nc]`` mask computed in a few hundred
-  microseconds of pure jitted JAX).  The kernel receives a compacted
-  per-tile chunk list and loops exactly ``count[t]`` times — the BVH
-  "traversal" has become a data-parallel cull + a short scalar loop.
+  ``bvh.rs:103-110``) and grouped into *chunks* of ``tc`` consecutive
+  triangles; consecutive leaves are spatially adjacent, so chunk AABBs
+  stay tight.  The table is compact and component-major: ``[9, Nc*tc]``
+  float32 (corner ``a``, edges ``e1 = b - a`` and ``e2 = c - a``), so the
+  ``tc`` values of one component of one chunk are contiguous.
+* Rays travel in *tiles* of ``r`` rays, component-major ``[8, T, r]``
+  (ox, oy, oz, dx, dy, dz, exclusion id, occlusion cap).
+* Which chunks a tile must test is decided outside the loop by
+  conservative interval arithmetic (per-tile ray bounds vs chunk AABBs,
+  a dense ``[T, Nc]`` mask in plain jitted JAX), then compacted into a
+  per-tile ascending chunk list and a count.
+* The loop over each tile's list runs either as the Pallas kernel
+  (:func:`_packet_kernel`: one program per ``R`` rays of a tile, the
+  running best hit in registers, chunks streamed from device memory;
+  compiled through Triton on a GPU, interpreted on the CPU) or as the
+  plain ``lax`` loop (:func:`_lax_chunk_loop`: one global loop over list
+  position that gathers every tile's next chunk) — the reference the
+  kernel is tested against.
 
-Correctness: culling is conservative (interval bounds + wobble cover
-every ray in the tile; a chunk's AABB covers its triangles), so the
-kernel sees a superset of the prims any ray could hit; the per-pair
-test is the exact Möller–Trumbore of ``rt_rs_tpu.ops.intersect``.
-Verified against the naive brute-force backend in
-``tests/test_pbvh.py`` (and ``tests/test_stream.py``
-for the HBM-streaming variant).
+Correctness: culling is conservative (interval bounds plus wobble cover
+every ray in the tile; a chunk's AABB covers its triangles), so the loop
+sees a superset of the prims any ray could hit, and the per-pair test is
+the exact Möller–Trumbore of :mod:`rt_rs_tpu.ops.intersect`.  Both loops
+keep the lexicographically smallest ``(t, prim id)`` — the naive loop's
+first-strictly-smaller rule — so they agree with the ``naive`` backend
+(``tests/test_pbvh.py``).
 """
 
 from __future__ import annotations
@@ -45,225 +42,152 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-LANES = 128  # VPU lane width; also the chunk table's component-lane dim
-RAY_TILE = 128  # default rays per tile (lane dimension; see ray_tile arg)
-TRI_CHUNK = 8  # triangles per chunk (sublane dimension)
-# Measured-optimal knobs for full-frame rendering (PERF.md round-2
-# sweeps): 64-tri chunks amortize the per-list-entry fixed cost; 256-ray
-# tiles (one 16x16 pixel block under the swizzle) amortize it again at
-# no frustum cost.  The kernel-level defaults above stay at the native
-# tile sizes; handlers pass these.
+from rt_rs_tpu.ops.pallas import INTERPRET, kernel_mode
+
+NCOMP = 9  # a.xyz, e1.xyz, e2.xyz per triangle
+RAY_TILE = 128  # default rays per tile of the AoS entry
+TRI_CHUNK = 8  # default triangles per chunk of the table builder
+# Handler defaults.  Chunk height and tile width set the cull
+# granularity (one list entry per (tile, chunk) pair); the kernel's own
+# launch shape below is independent of both.  Chosen on an NVIDIA H100
+# (80 GB HBM3) at a 700 W power limit; see PERF.md.
 TUNED_TRI_CHUNK = 64
 TUNED_RAY_TILE = 256
+# Kernel launch shape: rays per Triton program (a power of two dividing
+# the tile width), triangles per inner step (a power of two dividing the
+# chunk height), and Triton's warps and pipeline stages.  Chosen on an
+# NVIDIA H100 (80 GB HBM3) at a 700 W power limit; see PERF.md.
+RAYS_PER_PROGRAM = 128
+TRIS_PER_STEP = 8
+NUM_WARPS = 4
+NUM_STAGES = 1
 # Chunk counts are padded to a multiple of CHUNK_ALIGN so the cull can
-# run at any block granularity dividing it (and the streaming kernel's
-# 32-chunk DMA blocks need no extra padding).  Padded chunks have zero
+# run at any block granularity dividing it.  Padded chunks have zero
 # components (det = 0 -> always miss) and inverted bounds (culled).
 CHUNK_ALIGN = 32
 # Chunks per cull block (>1 = interval culling and the compaction
-# argsort run at [T, Nc/CULL_BLOCK] granularity and the kernel sweeps
-# whole blocks).  MEASURED: every coarsening LOSES on real TPU — the
-# extra kernel work from looser block bounds dwarfs the argsort savings
-# (PERF.md) — so the default is exact per-chunk culling.
+# argsort run at [T, Nc/CULL_BLOCK] granularity and the loop sweeps
+# whole blocks).  1 = exact per-chunk culling.
 CULL_BLOCK = 1
-# The chunk table lives wholly in VMEM ([Nc, 8, 128] f32 = 4 KB/chunk);
-# cap it well under the ~16 MB budget.  Scenes beyond ~12K triangles
-# need the threaded `bvh` backend until chunk streaming (double-buffered
-# HBM->VMEM DMA) lands.
-MAX_VMEM_CHUNKS = 1536
-TILE_GROUP = 32  # ray tiles processed per grid step (amortizes the
-# per-step pipeline overhead, which otherwise dominates when most
-# tiles are empty: 1080p teatime went ~135 ms -> see bench history)
-EXIT_CHECK = 8  # early_exit: refresh the running worst-best-t bound
-# every this many list entries (each refresh is a vector->scalar
-# reduce, the cost VERDICT r4 called 'the in-loop reduction overhead';
-# staleness only delays skips, never causes a wrong one)
+# Tiles per block of the per-ray cull's lax.map (bounds its [B, r, Nc]
+# temporaries); ray-tile counts are padded to a multiple of it.
+TILE_GROUP = 32
 REFINE_SUB = 1  # default refine granularity: 1 = exact per-ray slabs
-# (chunk_overlap_mask_perray_cm).  MEASURED: subgroup interval boxes
-# barely tighten the lists (teatime bounce batches: interval 25.3K
-# entries, sub-8 22.0K, per-ray 12.7K) — reflected-direction
-# divergence is extreme even across 4 adjacent pixels — so the only
-# granularity worth its math is per-ray (see PERF.md round 3).
 
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class TriChunks:
-    """Leaf-ordered triangle soup in chunked SoA layout.
+    """Leaf-ordered triangle soup in chunked, compact SoA layout.
 
-    ``comp`` is ``[9, 8, Nc]`` float32: components (ax,ay,az, e1x,e1y,
-    e1z, e2x,e2y,e2z) x sublane (tri-in-chunk) x chunk.  Edge vectors
-    are precomputed (`e1 = b - a`, `e2 = c - a`) — the reference
-    recomputes them per ray per test (bvh.rs:206-207); on TPU we hoist
-    them since the mesh is static per frame.
+    ``comp`` is ``[9, Nc * tc]`` float32: components (ax, ay, az, e1x,
+    e1y, e1z, e2x, e2y, e2z) x triangle; chunk ``c`` is columns
+    ``c*tc .. c*tc+tc-1``.  Edge vectors are precomputed (the reference
+    recomputes them per ray per test, bvh.rs:206-207).
 
-    ``bmin``/``bmax`` are ``[Nc, 3]`` chunk AABBs (with all 3 triangle
-    vertices inside).  ``first_pid`` is the prim id (in the reordered,
-    null-prefixed id space) of chunk 0 sublane 0, i.e. 1.
-    """
+    ``bmin``/``bmax`` are ``[Nc, 3]`` chunk AABBs.  Triangle ``i`` of the
+    table (column ``i``) has prim id ``i + 1`` (reordered, null-prefixed
+    id space)."""
 
-    comp: jax.Array  # [Nc, 8, LANES] float32 (9 components in lanes 0..8)
+    comp: jax.Array  # [9, Nc * tc] float32
     bmin: jax.Array  # [Nc, 3] float32
     bmax: jax.Array  # [Nc, 3] float32
     num_chunks: int = dataclasses.field(metadata=dict(static=True))
-    # Optional shade-attribute table for in-kernel hit-row emission:
-    # [Nc, 32, LANES] f32, attr_t[c, j, s] = shade_table[1 + c*tc + s, j]
-    # (transposed so the second pass's match-matmul lands rows in the
-    # component-major (32, r) layout directly; see _mt_kernel).
-    attr_t: jax.Array | None = None
+
+    @property
+    def tri_chunk(self) -> int:
+        """Triangles per chunk."""
+        return int(self.comp.shape[1]) // self.num_chunks
 
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DualTriChunks:
     """Two chunk tables over the SAME dense leaf order at different
-    granularities: ``coarse`` (tc=64 — amortizes per-entry cost on
-    coherent primaries) and ``fine`` (smaller tc — per-ray refine culls
-    divergent bounce/shadow batches far tighter per swept tri-slot;
-    experiments/chunk_partition.py).  Because packing is dense, a
-    triangle's global prim id (``1 + c*tc + sub`` = leaf index + 1) is
-    IDENTICAL in both tables, and the per-(tri, ray) intersection
-    arithmetic does not depend on tc — so the tables are bit-consistent
-    and the dispatch choice (by the trace_tiled ``refine`` flag) is
+    granularities: ``coarse`` (amortizes per-entry cost on coherent
+    primaries) and ``fine`` (smaller tc — per-ray refine culls divergent
+    bounce/shadow batches tighter per swept triangle).  Because packing
+    is dense, a triangle's prim id (``1 + column``) is IDENTICAL in both
+    tables and the per-(tri, ray) arithmetic does not depend on tc — so
+    the dispatch choice (by the trace_tiled ``refine`` flag) is
     unobservable in outputs."""
 
     coarse: TriChunks
     fine: TriChunks
 
 
-def resident_fits(chunks: "TriChunks", with_attrs: bool = False) -> bool:
-    """Whether a chunk table fits the VMEM-resident kernel budget.
+def build_tri_chunks(pa, pb, pc, tri_chunk: int = TRI_CHUNK) -> TriChunks:
+    """Pack reordered prim corners into a chunk table (jit-traceable).
 
-    ``with_attrs`` accounts for the attr_t table the emit_rows kernel
-    additionally holds; beyond the cap, callers fall back to the
-    gather path (correct, slightly slower).  Budgeted in bytes so the
-    accounting stays honest at non-default chunk heights: comp costs
-    512 B/tri at ANY tc (the 9 components lane-pad to 128), but attr_t
-    is a fixed 16 KB/chunk (32 x 128 lanes), i.e. 16384/tc B/tri — 4x
-    the tc=64 rate at tc=16.  At tc=64 this reproduces the historical
-    caps exactly (12,288 tris plain / 8,192 with attrs)."""
-    tc = int(chunks.comp.shape[1])
-    tris = chunks.num_chunks * tc
-    per_tri = 512 + ((32 * LANES * 4) // tc if with_attrs else 0)
-    budget = MAX_VMEM_CHUNKS * TRI_CHUNK * 512  # bytes
-    return tris * per_tri <= budget
-
-
-def rows_budget_ok(n_tris: int, tri_chunk: int) -> bool:
-    """Whether an ``n_tris``-triangle table AT THIS CHUNK HEIGHT fits
-    the emit-rows VMEM budget, accounting for the CHUNK_ALIGN padding
-    the builders apply (a raw-triangle cap admits over-budget tables
-    near the boundary: 2,457 tris at tc=8 pad to 2,560).  Exactly
-    :func:`resident_fits` applied to the table the builder would
-    produce — use this BEFORE building to decide whether to carry the
-    attr table at all."""
-    nc = -(-max(1, n_tris) // tri_chunk)
-    nc = -(-nc // CHUNK_ALIGN) * CHUNK_ALIGN
-    per_chunk = tri_chunk * 512 + 32 * LANES * 4
-    return nc * per_chunk <= MAX_VMEM_CHUNKS * TRI_CHUNK * 512
-
-
-def build_tri_chunks(
-    pa: np.ndarray,
-    pb: np.ndarray,
-    pc: np.ndarray,
-    max_chunks: int | None = MAX_VMEM_CHUNKS,
-    tri_chunk: int = TRI_CHUNK,
-    shade_rows: np.ndarray | None = None,  # [P+1, 32] shade table
-) -> TriChunks:
-    """Pack reordered prim corners (rows 1.. of the scene arrays; row 0
-    is the null sentinel and is excluded) into chunks.
-
-    ``max_chunks`` guards the VMEM-resident kernel (in units of 8-tri
-    chunk equivalents); pass ``None`` for the streaming kernel
-    (HBM-resident table, packet_stream.py).  ``tri_chunk`` sets the
-    sublane height of a chunk (8/16/32): bigger chunks amortize the
-    kernel's fixed per-chunk-iteration cost over more triangles at the
-    price of looser chunk bounds."""
-    pa = np.asarray(pa, dtype=np.float32)[1:]
-    pb = np.asarray(pb, dtype=np.float32)[1:]
-    pc = np.asarray(pc, dtype=np.float32)[1:]
+    Inputs are the per-prim corners INCLUDING the null sentinel row 0,
+    which is excluded here.  The triangle count is padded to whole
+    chunks and the chunk count to a multiple of ``CHUNK_ALIGN``; padded
+    triangles are degenerate (never hit) and never enlarge bounds."""
+    pa = jnp.asarray(pa, jnp.float32)[1:]
+    pb = jnp.asarray(pb, jnp.float32)[1:]
+    pc = jnp.asarray(pc, jnp.float32)[1:]
     p = pa.shape[0]
     nc = max(1, -(-p // tri_chunk))
     nc = -(-nc // CHUNK_ALIGN) * CHUNK_ALIGN
-    if max_chunks is not None and nc * tri_chunk > max_chunks * TRI_CHUNK:
-        raise ValueError(
-            f"scene has {p} triangles -> {nc} chunks x {tri_chunk}, "
-            f"exceeding the packet kernel's VMEM-resident limit "
-            f"(~{max_chunks * TRI_CHUNK} tris). Use the "
-            "streaming path (automatic via the pbvh handler) or the "
-            "'bvh' handler."
-        )
     pad = nc * tri_chunk - p
 
     def padz(x):
-        return np.pad(x, ((0, pad), (0, 0)))
+        return jnp.pad(x, ((0, pad), (0, 0)))
 
-    pa_, pb_, pc_ = padz(pa), padz(pb), padz(pc)  # degenerate pads -> miss
-    e1 = pb_ - pa_
-    e2 = pc_ - pa_
+    pa_, pb_, pc_ = padz(pa), padz(pb), padz(pc)
+    comp = jnp.concatenate([pa_, pb_ - pa_, pc_ - pa_], axis=1).T  # [9, P]
 
-    comp9 = np.stack(
-        [
-            pa_[:, 0], pa_[:, 1], pa_[:, 2],
-            e1[:, 0], e1[:, 1], e1[:, 2],
-            e2[:, 0], e2[:, 1], e2[:, 2],
-        ],
-        axis=1,
-    )  # [P_pad, 9]
-    # Chunk-major layout [Nc, tc, 128]: the leading dim is dynamically
-    # indexable in Mosaic (the (tc, 128) tail is whole native tiles);
-    # the 9 components sit in lanes 0..8, rest zero-padded.
-    comp = np.zeros((nc, tri_chunk, LANES), dtype=np.float32)
-    comp[:, :, :9] = comp9.reshape(nc, tri_chunk, 9)
-
-    tri_min = np.minimum(np.minimum(pa_, pb_), pc_)
-    tri_max = np.maximum(np.maximum(pa_, pb_), pc_)
+    big = jnp.float32(np.finfo(np.float32).max)
+    tri_min = jnp.minimum(jnp.minimum(pa_, pb_), pc_)
+    tri_max = jnp.maximum(jnp.maximum(pa_, pb_), pc_)
     if pad:
-        # Padded triangles must never enlarge chunk bounds.
-        tri_min[p:] = np.float32(np.finfo(np.float32).max)
-        tri_max[p:] = np.float32(-np.finfo(np.float32).max)
-    bmin = tri_min.reshape(nc, tri_chunk, 3).min(axis=1)
-    bmax = tri_max.reshape(nc, tri_chunk, 3).max(axis=1)
-
-    attr_t = None
-    if shade_rows is not None and not np.isfinite(shade_rows).all():
-        # The emit-rows pass is an attr x 0/1-match matmul; a NaN/inf
-        # attr value poisons EVERY ray of every tile that sweeps its
-        # chunk (NaN * 0 = NaN), not just rays hitting that prim.
-        # Degenerate OBJ faces yield NaN smooth normals (reference
-        # parity: v3.rs normalize divides by a zero magnitude), so such
-        # scenes must stay on the gather path, where a NaN row reaches
-        # only the pixels that actually hit the degenerate prim.
-        from rt_rs_tpu.utils.log import logger
-
-        logger.info(
-            "shade table has non-finite values (degenerate geometry); "
-            "kernel-emitted rows disabled, using the gather path"
-        )
-        shade_rows = None
-    if shade_rows is not None:
-        rows = np.asarray(shade_rows, dtype=np.float32)[1:]  # drop sentinel
-        rows = np.pad(rows, ((0, nc * tri_chunk - p), (0, 0)))
-        # [Nc, tc, 32] -> [Nc, 32, tc] -> lane-pad to LANES.
-        at = rows.reshape(nc, tri_chunk, 32).transpose(0, 2, 1)
-        attr_t = np.zeros((nc, 32, LANES), dtype=np.float32)
-        attr_t[:, :, :tri_chunk] = at
-        attr_t = jnp.asarray(attr_t)
-
+        real = (jnp.arange(nc * tri_chunk) < p)[:, None]
+        tri_min = jnp.where(real, tri_min, big)
+        tri_max = jnp.where(real, tri_max, -big)
     return TriChunks(
-        comp=jnp.asarray(comp),
-        bmin=jnp.asarray(bmin),
-        bmax=jnp.asarray(bmax),
+        comp=comp,
+        bmin=tri_min.reshape(nc, tri_chunk, 3).min(axis=1),
+        bmax=tri_max.reshape(nc, tri_chunk, 3).max(axis=1),
         num_chunks=nc,
-        attr_t=attr_t,
+    )
+
+
+def chunk_footprint(accel) -> int:
+    """Device bytes of a chunk table (components + bounds); Dual
+    tables count both members."""
+    if isinstance(accel, DualTriChunks):
+        return chunk_footprint(accel.coarse) + chunk_footprint(accel.fine)
+    return int(
+        np.prod(accel.comp.shape) * 4 + np.prod(accel.bmin.shape) * 4 * 2
+    )
+
+
+def flat_table(accel, pad_multiple: int = 1) -> TriChunks:
+    """The single chunk table behind an accel (Dual -> its coarse
+    member, the fine table being a twin over the same id space), with
+    never-hit chunks appended so the chunk count divides
+    ``pad_multiple`` (the scene-parallel sharder needs equal slices)."""
+    if isinstance(accel, DualTriChunks):
+        accel = accel.coarse
+    if not isinstance(accel, TriChunks):
+        raise TypeError(f"no chunk table behind {type(accel).__name__}")
+    nc = accel.num_chunks
+    extra = -(-nc // pad_multiple) * pad_multiple - nc
+    if extra == 0:
+        return accel
+    big = jnp.float32(np.finfo(np.float32).max)
+    return TriChunks(
+        comp=jnp.pad(accel.comp, ((0, 0), (0, extra * accel.tri_chunk))),
+        bmin=jnp.concatenate([accel.bmin, jnp.full((extra, 3), big)]),
+        bmax=jnp.concatenate([accel.bmax, jnp.full((extra, 3), -big)]),
+        num_chunks=nc + extra,
     )
 
 
 # ----------------------------------------------------------------------
-# Host-side conservative chunk culling (pure jitted JAX)
+# Conservative chunk culling (plain jitted JAX)
 
 
 def _interval_mul(u_lo, u_hi, i_lo, i_hi):
@@ -279,79 +203,31 @@ def _interval_mul(u_lo, u_hi, i_lo, i_hi):
     return lo, hi
 
 
-def chunk_overlap_mask(
-    o: jax.Array,  # [T, RAY_TILE, 3]
-    inv_d: jax.Array,  # [T, RAY_TILE, 3]
-    ray_valid: jax.Array,  # [T, RAY_TILE] bool
+def chunk_overlap_mask_cm(
+    o3: jax.Array,  # [3, T, r] component-major origins
+    inv3: jax.Array,  # [3, T, r]
+    ray_valid: jax.Array,  # [T, r] bool
     bmin: jax.Array,  # [Nc, 3]
     bmax: jax.Array,  # [Nc, 3]
     *,
     t_min: float,
     t_max: float,
-    t_cap: jax.Array | None = None,  # [T, RAY_TILE] per-ray upper bound
+    t_cap: jax.Array | None = None,  # [T, r] per-ray upper bound
 ) -> jax.Array:
     """Conservative [T, Nc] mask: False only if NO ray in the tile can
-    hit the chunk's AABB within the t-window."""
-    big = jnp.float32(3.0e38)
-    o_m = jnp.where(ray_valid[..., None], o, big)
-    o_lo = jnp.min(o_m, axis=1)  # [T, 3]
-    o_hi = jnp.max(jnp.where(ray_valid[..., None], o, -big), axis=1)
-    i_m = jnp.where(ray_valid[..., None], inv_d, big)
-    i_lo = jnp.min(i_m, axis=1)
-    i_hi = jnp.max(jnp.where(ray_valid[..., None], inv_d, -big), axis=1)
-    return _overlap_from_bounds(
-        o_lo, o_hi, i_lo, i_hi, ray_valid, bmin, bmax,
-        t_min=t_min, t_max=t_max, t_cap=t_cap,
-    )
-
-
-def chunk_overlap_mask_cm(
-    o3: jax.Array,  # [3, T, r] component-major origins
-    inv3: jax.Array,  # [3, T, r]
-    ray_valid: jax.Array,  # [T, r] bool
-    bmin: jax.Array,
-    bmax: jax.Array,
-    *,
-    t_min: float,
-    t_max: float,
-    t_cap: jax.Array | None = None,  # [T, r]
-    want_near: bool = False,
-) -> jax.Array:
-    """``chunk_overlap_mask`` over component-major ray tiles (rays on
-    lanes) — reductions run along lanes, no [T,r,3] relayout.
-
-    ``want_near`` additionally returns the conservative per-(tile,
-    block) entry-distance lower bound (the slab ``near_lb``) — the
-    front-to-back sort key for the ``early_exit`` prelude."""
+    hit the chunk's AABB within the t-window.  Each tile's rays are
+    wrapped in one origin / inverse-direction interval box."""
     big = jnp.float32(3.0e38)
     v = ray_valid[None, :, :]
     o_lo = jnp.min(jnp.where(v, o3, big), axis=2).T  # [T, 3]
     o_hi = jnp.max(jnp.where(v, o3, -big), axis=2).T
     i_lo = jnp.min(jnp.where(v, inv3, big), axis=2).T
     i_hi = jnp.max(jnp.where(v, inv3, -big), axis=2).T
-    return _overlap_from_bounds(
-        o_lo, o_hi, i_lo, i_hi, ray_valid, bmin, bmax,
-        t_min=t_min, t_max=t_max, t_cap=t_cap, want_near=want_near,
-    )
 
-
-def _overlap_from_bounds(
-    o_lo, o_hi, i_lo, i_hi,  # [T, 3] per-tile interval bounds
-    ray_valid,  # [T, r] bool
-    bmin, bmax,  # [Nc, 3]
-    *,
-    t_min: float,
-    t_max: float,
-    t_cap: jax.Array | None,
-    want_near: bool = False,
-) -> jax.Array:
     wob = 2e-6 + 1e-5 * jnp.maximum(jnp.abs(bmin), jnp.abs(bmax))  # [Nc, 3]
     lo_b = bmin - wob
     hi_b = bmax + wob
-
-    # Accumulate per-axis to keep live temporaries at [T, Nc] (a single
-    # [T, Nc, 3] formulation materializes ~10 x 150 MB buffers at 1080p
-    # and becomes HBM-bound).
+    # Accumulate per axis to keep live temporaries at [T, Nc].
     n_tiles = o_lo.shape[0]
     near_lb = jnp.full((n_tiles, bmin.shape[0]), -jnp.inf, dtype=jnp.float32)
     far_ub = jnp.full((n_tiles, bmin.shape[0]), jnp.inf, dtype=jnp.float32)
@@ -367,9 +243,9 @@ def _overlap_from_bounds(
         near_lb = jnp.maximum(near_lb, jnp.minimum(p0_lo, p1_lo))
         far_ub = jnp.minimum(far_ub, jnp.maximum(p0_hi, p1_hi))
     any_ray = jnp.any(ray_valid, axis=1)[:, None]
-    # Padded chunks/blocks carry inverted bounds (min > max); the slab
-    # interval test alone would NOT reject them (entry -inf / exit +inf),
-    # so cull them explicitly.
+    # Padded chunks carry inverted bounds (min > max); the slab test
+    # alone would NOT reject them (entry -inf / exit +inf), so cull
+    # them explicitly.
     nonempty = jnp.all(bmin <= bmax, axis=-1)[None, :]  # [1, Nc]
     if t_cap is None:
         cap = jnp.float32(t_max)
@@ -380,16 +256,13 @@ def _overlap_from_bounds(
             jnp.max(jnp.where(ray_valid, t_cap, -jnp.inf), axis=1),
             t_max,
         )[:, None]
-    mask = (
+    return (
         any_ray
         & nonempty
         & (near_lb <= far_ub)
         & (far_ub >= t_min)
         & (near_lb <= cap)
     )
-    if want_near:
-        return mask, jnp.maximum(near_lb, jnp.float32(t_min))
-    return mask
 
 
 def chunk_overlap_mask_perray_cm(
@@ -407,36 +280,26 @@ def chunk_overlap_mask_perray_cm(
     """Per-ray slab culling, OR-reduced over each tile's live rays ->
     [T, Nc] — the pass behind ``refine=True``.
 
-    The interval cull (:func:`chunk_overlap_mask_cm`) wraps ALL of a
-    tile's rays in one origin/inv-direction box; when the tile's rays
-    diverge (secondary bounces — reflected directions fan out across
-    the scene) that box covers everything and the cull collapses:
-    frame profiling measured bounce intersects at ~2.5 ms each with
-    <5% live rays, all of it kernel math on near-uncullable lists
-    (PERF.md round 3).  Here every ray runs its own slab test (an
-    [r, Nc] lattice per tile, ~20 VPU ops per pair) and a chunk
-    survives iff ANY live ray's [near, far] interval overlaps it —
-    the same conservativeness guarantee (identical wobble-inflated
-    bounds; every chunk a ray could hit passes its slab test), far
-    tighter lists under divergence.  Rays with a cap (shadow rays:
-    their light distance; chained segments: the running best) cull
-    against their OWN cap instead of the tile max.
+    The interval cull wraps ALL of a tile's rays in one box; when the
+    rays diverge (reflected directions fan out across the scene) that
+    box covers everything and the cull collapses.  Here every ray runs
+    its own slab test and a chunk survives iff ANY live ray's
+    [near, far] interval overlaps it — the same conservativeness
+    guarantee (identical wobble-inflated bounds), far tighter lists
+    under divergence.  Rays with a cap (shadow rays: their light
+    distance) cull against their OWN cap.
 
     Zero direction components give ``inf`` inverses; they are clamped
-    to +-1e30, which preserves the parallel-ray verdict exactly
-    (origin outside the slab -> near=+huge -> culled; inside ->
-    -huge/+huge -> no constraint) without the 0*inf NaNs of the raw
-    slab test.  NaN directions (a degenerate camera) cull everything
-    — unlike the interval cull's keep-everything; garbage either way.
+    to +-1e30, which preserves the parallel-ray verdict exactly without
+    the 0*inf NaNs of the raw slab test.
 
     Processed in ``tile_block``-tile batches via ``lax.map`` so live
-    temporaries stay at [B, r, Nc] f32 (~4 MB at the default sizes)
-    regardless of XLA's fusion decisions (a single [T, r, Nc]
-    formulation would stage ~180 MB per temporary at 1080p)."""
+    temporaries stay at [B, r, Nc]; blocks with no live ray skip the
+    lattice."""
     t_tiles, r = ray_valid.shape
     nc = bmin.shape[0]
     wob = 2e-6 + 1e-5 * jnp.maximum(jnp.abs(bmin), jnp.abs(bmax))
-    lo_b = (bmin - wob).T  # [3, Nc] — chunks on lanes in the lattice
+    lo_b = (bmin - wob).T  # [3, Nc]
     hi_b = (bmax + wob).T
     nonempty = jnp.all(bmin <= bmax, axis=-1)  # [Nc] (padded chunks)
     inv = jnp.clip(inv3, -1e30, 1e30)
@@ -469,11 +332,7 @@ def chunk_overlap_mask_perray_cm(
         return jnp.any(ok, axis=1)  # [B, Nc]
 
     def block(args):
-        o, iv, vld, cp, live = args  # [3,B,r] [3,B,r] [B,r] [B,r] []
-        # Secondary bounces leave most blocks with no live ray at all
-        # (<5% live by bounce 2 — PERF.md round 3); a real branch here
-        # skips the whole [B, r, Nc] lattice for them, which is where
-        # the dense formulation spent most of its time.
+        o, iv, vld, cp, live = args
         return jax.lax.cond(
             live,
             lambda: compute(o, iv, vld, cp),
@@ -494,144 +353,6 @@ def chunk_overlap_mask_perray_cm(
     return out.reshape(t_tiles, nc) & nonempty[None, :]
 
 
-def _refine_kernel(
-    group_live_ref,  # SMEM [G] i32 (scalar prefetch): any valid ray
-    tile_live_ref,  # SMEM [T] i32 (scalar prefetch): any valid ray
-    rays_ref,  # VMEM (8, TILE_GROUP, r): component-major payload
-    capm_ref,  # VMEM (TILE_GROUP, r): min(cap, t_max), -inf if invalid
-    bounds_ref,  # VMEM (nc_pad, 8): lanes 0-2 lo, 3-5 hi (wobbled)
-    out_ref,  # VMEM (1, TILE_GROUP, nc_pad) i32: per-tile OR'd overlap
-    *,
-    t_min: float,
-):
-    nc = out_ref.shape[2]
-    r = rays_ref.shape[2]
-    tile0 = pl.program_id(0) * TILE_GROUP
-
-    lo = [bounds_ref[:, ax : ax + 1] for ax in range(3)]  # (nc, 1)
-    hi = [bounds_ref[:, 3 + ax : 4 + ax] for ax in range(3)]
-    ones_r = jnp.ones((1, r), dtype=jnp.float32)
-
-    def live_row(g):
-        near = jnp.full((nc, r), -jnp.inf, dtype=jnp.float32)
-        far = jnp.full((nc, r), jnp.inf, dtype=jnp.float32)
-        for ax in range(3):
-            o = rays_ref[ax : ax + 1, g, :]  # (1, r)
-            iv = jnp.clip(
-                1.0 / rays_ref[3 + ax : 4 + ax, g, :], -1e30, 1e30
-            )
-            q0 = (lo[ax] - o) * iv  # (nc, r)
-            q1 = (hi[ax] - o) * iv
-            near = jnp.maximum(near, jnp.minimum(q0, q1))
-            far = jnp.minimum(far, jnp.maximum(q0, q1))
-        ok = (
-            (near <= far)
-            & (far >= jnp.float32(t_min))
-            & (near <= capm_ref[pl.ds(g, 1), :])
-        )
-        # OR over rays as a count matvec — lands the result directly
-        # in row layout (1, nc), avoiding a (nc,1)->(1,nc) transpose.
-        return jax.lax.dot_general(
-            ones_r,
-            ok.astype(jnp.float32),
-            (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (1, nc)
-
-    def tile_body(g, carry):
-        # Per-TILE liveness gate: secondary bounces leave live groups
-        # mostly dead inside (live tiles ~15% of a 32-tile grid while
-        # live groups are ~50% — PERF.md round 3); the scalar-prefetch
-        # cond skips the whole (nc, r) lattice per dead tile, same
-        # shape as _mt_kernel's subtile gate.
-        ov = jax.lax.cond(
-            tile_live_ref[tile0 + g] > 0,
-            lambda: live_row(g),
-            lambda: jnp.zeros((1, nc), jnp.float32),
-        )
-        # Row g of the carried (TILE_GROUP, nc) block — a masked
-        # select instead of a dynamic sublane store.
-        sel = (
-            jax.lax.broadcasted_iota(jnp.int32, (TILE_GROUP, nc), 0)
-            == g
-        )
-        return jnp.where(sel, ov, carry)
-
-    @pl.when(group_live_ref[pl.program_id(0)] == 0)
-    def _():
-        out_ref[0, :, :] = jnp.zeros((TILE_GROUP, nc), dtype=jnp.int32)
-
-    @pl.when(group_live_ref[pl.program_id(0)] > 0)
-    def _():
-        acc = jax.lax.fori_loop(
-            0,
-            TILE_GROUP,
-            tile_body,
-            jnp.zeros((TILE_GROUP, nc), dtype=jnp.float32),
-        )
-        out_ref[0, :, :] = (acc > 0.0).astype(jnp.int32)
-
-
-def _perray_overlap_kernel_call(
-    payload: jax.Array,  # [8, T, r]
-    ray_valid: jax.Array,  # [T, r] bool
-    bmin: jax.Array,
-    bmax: jax.Array,
-    *,
-    t_min: float,
-    t_max: float,
-    t_cap: jax.Array | None,
-    interpret: bool,
-) -> jax.Array:
-    """Pallas wrapper for the per-ray refine cull -> [T, Nc] bool.
-
-    Bit-equivalent to the XLA formulation in
-    :func:`chunk_overlap_mask_perray_cm` (same arithmetic per pair),
-    but skips dead 32-tile groups AND dead tiles inside live groups,
-    which is most of the work on secondary bounces."""
-    t_tiles, r = ray_valid.shape
-    nc = bmin.shape[0]
-    nc_pad = -(-nc // 8) * 8
-    wob = 2e-6 + 1e-5 * jnp.maximum(jnp.abs(bmin), jnp.abs(bmax))
-    bounds = jnp.zeros((nc_pad, 8), dtype=jnp.float32)
-    bounds = bounds.at[:nc, 0:3].set(bmin - wob)
-    bounds = bounds.at[:nc, 3:6].set(bmax + wob)
-    if t_cap is None:
-        capm = jnp.full((t_tiles, r), t_max, jnp.float32)
-    else:
-        capm = jnp.minimum(t_cap, jnp.float32(t_max))
-    capm = jnp.where(ray_valid, capm, -jnp.inf)
-    tile_live = jnp.any(ray_valid, axis=1).astype(jnp.int32)  # [T]
-    t_groups = t_tiles // TILE_GROUP
-    group_live = (
-        tile_live.reshape(t_groups, TILE_GROUP).max(axis=1)
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(t_groups,),
-        in_specs=[
-            pl.BlockSpec((8, TILE_GROUP, r), lambda t, *_: (0, t, 0)),
-            pl.BlockSpec((TILE_GROUP, r), lambda t, *_: (t, 0)),
-            pl.BlockSpec((nc_pad, 8), lambda t, *_: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, TILE_GROUP, nc_pad), lambda t, *_: (t, 0, 0)
-        ),
-    )
-    out = pl.pallas_call(
-        partial(_refine_kernel, t_min=t_min),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (t_groups, TILE_GROUP, nc_pad), jnp.int32
-        ),
-        interpret=interpret,
-    )(group_live, tile_live, payload, capm, bounds)
-    nonempty = jnp.all(bmin <= bmax, axis=-1)  # [Nc]
-    return (
-        out.reshape(t_tiles, nc_pad)[:, :nc] > 0
-    ) & nonempty[None, :]
-
-
 def chunk_overlap_mask_subgroup_cm(
     o3: jax.Array,  # [3, T, r] component-major origins
     inv3: jax.Array,  # [3, T, r]
@@ -645,17 +366,11 @@ def chunk_overlap_mask_subgroup_cm(
     sub: int = 8,
 ) -> jax.Array:
     """Interval culling at ``sub``-ray granularity, OR-reduced back to
-    tiles -> [T, Nc] — the production ``refine`` pass.
+    tiles -> [T, Nc] (``refine=n`` for n > 1).
 
     Reshapes each ray tile into ``r/sub`` pseudo-tiles of ``sub``
-    consecutive rays (adjacent pixels under the block swizzle) and
-    runs the ordinary tile-interval cull on them: 8-ray interval boxes
-    stay tight where a 256-ray box has fanned out over the whole
-    scene.  Costs ~sub-times less VPU math than the exact per-ray
-    slab pass (:func:`chunk_overlap_mask_perray_cm`) at nearly the
-    same list lengths (measured; PERF.md round 3), and inherits the
-    interval cull's conservativeness proof verbatim — it IS that cull
-    on smaller tiles."""
+    consecutive rays and runs the ordinary tile-interval cull on them;
+    it inherits that cull's conservativeness proof verbatim."""
     t_tiles, r = ray_valid.shape
     if r % sub:
         raise ValueError(f"ray_tile {r} not a multiple of sub {sub}")
@@ -671,37 +386,83 @@ def chunk_overlap_mask_subgroup_cm(
     return ov.reshape(t_tiles, g, -1).any(axis=1)
 
 
+def chunk_lists(
+    chunks: TriChunks,
+    payload: jax.Array,  # [8, T, r]
+    valid: jax.Array,  # [T, r]
+    t_cap: jax.Array | None,
+    *,
+    t_min: float,
+    t_max: float,
+    cull_block: int = CULL_BLOCK,
+    refine: bool | int = False,
+) -> tuple[jax.Array, jax.Array]:
+    """Cull and compact -> (ids [T, Nc] int32, counts [T] int32).
+
+    Row ``t`` of ``ids`` lists, in ascending order, the chunks tile
+    ``t`` must test; entries at and beyond ``counts[t]`` are padding.
+    ``refine``: False/0 = tile-interval cull; 1 (or True, the default
+    granularity ``REFINE_SUB``) = exact per-ray slabs; n > 1 = interval
+    cull at n-ray subgroups."""
+    nc = chunks.num_chunks
+    if nc % cull_block:
+        raise ValueError(
+            f"chunk count {nc} not divisible by cull_block {cull_block} "
+            f"(builders pad to CHUNK_ALIGN={CHUNK_ALIGN})"
+        )
+    nb = nc // cull_block
+    t_tiles = valid.shape[0]
+    inv3 = 1.0 / payload[3:6]
+    if cull_block > 1:
+        blk_min = jnp.min(chunks.bmin.reshape(nb, cull_block, 3), axis=1)
+        blk_max = jnp.max(chunks.bmax.reshape(nb, cull_block, 3), axis=1)
+    else:
+        blk_min, blk_max = chunks.bmin, chunks.bmax
+    window = dict(t_min=t_min, t_max=t_max, t_cap=t_cap)
+    n_sub = (REFINE_SUB if refine is True else int(refine)) if refine else 0
+    if n_sub == 1:
+        overlap = chunk_overlap_mask_perray_cm(
+            payload[0:3], inv3, valid, blk_min, blk_max, **window
+        )
+    elif n_sub > 1:
+        overlap = chunk_overlap_mask_subgroup_cm(
+            payload[0:3], inv3, valid, blk_min, blk_max, sub=n_sub, **window
+        )
+    else:
+        overlap = chunk_overlap_mask_cm(
+            payload[0:3], inv3, valid, blk_min, blk_max, **window
+        )  # [T, Nb]
+    # Stable argsort puts overlapping blocks first, ascending; each
+    # block then expands to its cull_block consecutive chunk ids.
+    order = jnp.argsort(~overlap, axis=1, stable=True).astype(jnp.int32)
+    counts = jnp.sum(overlap, axis=1, dtype=jnp.int32) * cull_block
+    if cull_block > 1:
+        order = (
+            order[:, :, None] * cull_block
+            + jnp.arange(cull_block, dtype=jnp.int32)[None, None, :]
+        ).reshape(t_tiles, nc)
+    return order, counts
+
+
 # ----------------------------------------------------------------------
-# The kernel
+# The chunk loop: Pallas kernel and plain-lax reference
 
 
 def mt_chunk_test(
-    chunk,  # (tc, LANES) f32: 9 components in lanes 0..8
-    ox, oy, oz, dx, dy, dz,  # (1, r) f32 ray components
-    pid,  # (tc, r) f32: the chunk's prim ids (global, exact < 2^24)
-    excl,  # (1, r) f32: exclusion id
+    tri,  # 9 arrays broadcastable to (S, R): a.xyz, e1.xyz, e2.xyz
+    ox, oy, oz, dx, dy, dz,  # ray components broadcastable to (S, R)
+    pid,  # the triangles' prim ids as f32 (exact < 2^24)
+    excl,  # the rays' exclusion ids as f32
     *,
     t_min: float,
     t_max: float,
     eps: float,
-    extra_ok=None,
 ):
-    """The Möller–Trumbore (tri_chunk, rays) lattice — THE shared
-    per-(chunk, tile) test of the resident (:func:`_mt_kernel`) and
-    DMA-streaming (``packet_stream._mt_stream_kernel``) kernels, kept
-    in one body so their documented op-for-op exactness cannot drift.
-    ``extra_ok`` ANDs an additional validity term (the streaming
-    kernel's block-list bit) into the pre-division mask.  Returns
-    ``(ok, w)``: hit mask and distances (garbage where ``~ok``)."""
-    ax = chunk[:, 0:1]  # (tc, 1) -> lane-broadcasts against rays
-    ay = chunk[:, 1:2]
-    az = chunk[:, 2:3]
-    e1x = chunk[:, 3:4]
-    e1y = chunk[:, 4:5]
-    e1z = chunk[:, 5:6]
-    e2x = chunk[:, 6:7]
-    e2y = chunk[:, 7:8]
-    e2z = chunk[:, 8:9]
+    """The Möller–Trumbore (triangles x rays) lattice shared by the
+    kernel and the ``lax`` loop, kept in one body so their arithmetic
+    cannot drift.  Returns ``(ok, w)``: hit mask and distances
+    (garbage where ``~ok``)."""
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = tri
 
     # p = cross(d, e2)
     px = dy * e2z - dz * e2y
@@ -734,8 +495,6 @@ def mt_chunk_test(
         & (sv >= 0.0)
         & (su + sv <= adet)
     )
-    if extra_ok is not None:
-        ok = ok & extra_ok
     w = (e2x * qx + e2y * qy + e2z * qz) / jnp.where(ok, det, 1.0)
     # Strict window (the naive replace semantics, basic.rs:95-101).
     ok = ok & (w > t_min) & (w < t_max)
@@ -743,224 +502,260 @@ def mt_chunk_test(
     return ok, w
 
 
-def _mt_kernel(
-    group_live_ref,  # SMEM [T // TILE_GROUP] int32: any VALID ray in group
-    counts_ref,  # SMEM [T] int32 (scalar prefetch): chunks per tile
-    cidx_ref,  # SMEM [T // TILE_GROUP] int32: collapsed block index per
-    # grid step (see packet_closest_hit_tiled's ``collapse``) — consumed
-    # only by the index maps; the body keys everything off program_id
-    ids_ref,  # SMEM (G, 1, Nc) int32: compacted chunk ids
-    rays_ref,  # VMEM (8, G, R) f32 component-major: ox,oy,oz,dx,dy,dz,excl,pad
-    tri_ref,  # VMEM (Nc, 8, LANES) f32: full chunk table
-    *refs,  # [attr_ref (Nc, 32, LANES)], [ed_ref SMEM (G,1,Nc) f32],
-    # out_t (G,1,R), out_id (G,1,R), [rows (32,G,R)]
+def _packet_kernel(
+    counts_ref,  # [T] int32: list length per tile
+    ids_ref,  # [T, Nc] int32: compacted ascending chunk ids
+    comp_ref,  # [9, Nc*tc] f32: the chunk table
+    pay_ref,  # (8, R) block: this program's rays
+    *out_refs,  # closest: t (R,), id (R,); any-hit: blocked (R,)
+    tc: int,
+    step: int,
     t_min: float,
     t_max: float,
     eps: float,
-    pid_base: float = 0.0,
-    emit_attrs: bool = False,
-    any_hit: bool = False,
-    early_exit: bool = False,
+    any_hit: bool,
 ):
-    del cidx_ref
-    refs = list(refs)
-    attr_ref = refs.pop(0) if emit_attrs else None
-    ed_ref = refs.pop(0) if early_exit else None
-    if emit_attrs:
-        out_t_ref, out_id_ref, rows_ref = refs
-    elif any_hit:
-        (out_blk_ref,) = refs
-    else:
-        out_t_ref, out_id_ref = refs
+    """One program: ``R`` rays of tile ``program_id(0)`` against that
+    tile's chunk list, ``step`` triangles per inner iteration.  The
+    running best per (triangle slot, ray) stays in registers; the
+    final reduction keeps the smallest prim id among equal ``t``."""
+    tile = pl.program_id(0)
+    ox, oy, oz, dx, dy, dz, excl = (pay_ref[c][None, :] for c in range(7))
+    n_entries = counts_ref[tile]
+    slot = jnp.arange(step, dtype=jnp.int32)
     miss = jnp.float32(t_max + 1.0)
-    tile0 = pl.program_id(0) * TILE_GROUP
-    r = rays_ref.shape[2]  # rays per tile (ray_tile)
-    tc = tri_ref.shape[1]  # triangles per chunk (tri_chunk)
+    r = pay_ref.shape[1]
 
-    sub = jax.lax.broadcasted_iota(jnp.int32, (tc, r), 0).astype(jnp.float32)
+    def sweep(update, init):
+        # Outer loop over the tile's list entries, inner loop over the
+        # chunk's triangles ``step`` at a time.
+        def entry(k, carry):
+            c0 = ids_ref[tile, k] * tc
 
-    def subtile_miss(g):
-        # Valid tile whose culled chunk list is empty (common in
-        # secondary bounces and per-segment passes): emit misses
-        # without the carry init / sublane reduction of the full path.
-        if any_hit:
-            out_blk_ref[g, :, :] = jnp.zeros((1, r), dtype=jnp.int32)
-            return
-        out_t_ref[g, :, :] = jnp.full((1, r), miss, dtype=jnp.float32)
-        out_id_ref[g, :, :] = jnp.zeros((1, r), dtype=jnp.int32)
-        if emit_attrs:
-            rows_ref[:, g, :] = jnp.zeros((32, r), dtype=jnp.float32)
-
-    def subtile_full(g):
-        ox = rays_ref[0:1, g, :]  # (1, 128)
-        oy = rays_ref[1:2, g, :]
-        oz = rays_ref[2:3, g, :]
-        dx = rays_ref[3:4, g, :]
-        dy = rays_ref[4:5, g, :]
-        dz = rays_ref[5:6, g, :]
-        excl = rays_ref[6:7, g, :]  # GLOBAL prim id as f32 (exact < 2^24)
-        if any_hit:
-            # Per-ray occlusion bound (the light distance), carried in
-            # payload row 7 by shade_pre.
-            cap = rays_ref[7:8, g, :]
-
-        def chunk_body(k, carry):
-            if any_hit:
-                blk = carry
-            else:
-                bt, bid = carry
-            c = ids_ref[g, 0, k]
-
-            chunk = tri_ref[c]  # (8, 128); components in lanes 0..8
-            # prim ids: reordered space, +1 for the null sentinel;
-            # pid_base shifts segment-local chunk ids into the global id
-            # space (segmented tables) so exclusion and outputs are
-            # global with no post-hoc remap.
-            pid = (
-                sub
-                + jnp.float32(1.0 + pid_base)
-                + (c.astype(jnp.float32) * tc)
-            )
-            ok, w = mt_chunk_test(
-                chunk, ox, oy, oz, dx, dy, dz, pid, excl,
-                t_min=t_min, t_max=t_max, eps=eps,
-            )
-
-            if any_hit:
-                # blocked iff ANY hit lies inside (t_min, cap): exactly
-                # equivalent to closest-hit-then-compare, since
-                # min(t) < cap iff some t < cap.  f32 carry — Mosaic
-                # miscompiles wide i1 loop carries (vpad layout bug).
-                return jnp.where(ok & (w < cap), jnp.float32(1.0), blk)
-
-            w = jnp.where(ok, w, miss)
-            if early_exit:
-                # (t, pid)-lexicographic update: under the front-to-
-                # back reorder, first-seen no longer means smallest
-                # pid, so equal-t ties break explicitly (identical to
-                # the default path's ascending-scan outcome).
-                better = (w < bt) | ((w == bt) & (pid < bid))
-            else:
-                better = w < bt
-            return jnp.where(better, w, bt), jnp.where(better, pid, bid)
-
-        if any_hit:
-            blk = jax.lax.fori_loop(
-                0, counts_ref[tile0 + g], chunk_body,
-                jnp.zeros((tc, r), dtype=jnp.float32),
-            )
-            out_blk_ref[g, :, :] = (
-                jnp.max(blk, axis=0, keepdims=True) > 0.0
-            ).astype(jnp.int32)
-            return
-
-        bt0 = jnp.full((tc, r), miss, dtype=jnp.float32)
-        bid0 = jnp.zeros((tc, r), dtype=jnp.float32)
-        if early_exit:
-            # Sorted entry bounds + in-loop skip: a list entry whose
-            # conservative entry distance exceeds the tile's running
-            # worst best-t (max over rays of per-ray best) cannot
-            # improve any ray.  The worst bound refreshes every
-            # EXIT_CHECK entries (a vector->scalar reduce per refresh;
-            # staleness is conservative).  Rays still at miss
-            # (including padding/invalid rays) pin the bound high, so
-            # tiles containing any miss ray sweep their full list —
-            # the round-4 sizing's expected behavior.
-            def chunk_body_ee(k, carry):
-                bt, bid, worst = carry
-                bt, bid = jax.lax.cond(
-                    ed_ref[g, 0, k] <= worst,
-                    lambda bt, bid: chunk_body(k, (bt, bid)),
-                    lambda bt, bid: (bt, bid),
-                    bt, bid,
+            def sub(j, carry):
+                base = pl.multiple_of(c0 + j * step, step)
+                tri = tuple(
+                    comp_ref[i, pl.ds(base, step)][:, None]
+                    for i in range(NCOMP)
                 )
-                worst = jax.lax.cond(
-                    k % EXIT_CHECK == EXIT_CHECK - 1,
-                    lambda: jnp.max(jnp.min(bt, axis=0)),
-                    lambda: worst,
+                pid = (slot + (base + 1)).astype(jnp.float32)[:, None]
+                ok, w = mt_chunk_test(
+                    tri, ox, oy, oz, dx, dy, dz, pid, excl,
+                    t_min=t_min, t_max=t_max, eps=eps,
                 )
-                return bt, bid, worst
+                return update(ok, w, pid, carry)
 
-            bt, bid, _ = jax.lax.fori_loop(
-                0, counts_ref[tile0 + g], chunk_body_ee,
-                (bt0, bid0, miss),
-            )
-        else:
-            bt, bid = jax.lax.fori_loop(
-                0, counts_ref[tile0 + g], chunk_body, (bt0, bid0)
-            )
+            return jax.lax.fori_loop(0, tc // step, sub, carry)
 
-        # Reduce the 8 sublane slots per ray; tie -> smallest prim id
-        # (matches the naive loop's first-strictly-smaller semantics).
-        best = jnp.min(bt, axis=0, keepdims=True)  # (1, 128)
-        big_id = jnp.float32(3.0e38)
-        bid_sel = jnp.where(bt == best, bid, big_id)
-        best_id = jnp.min(bid_sel, axis=0, keepdims=True)
-        out_t_ref[g, :, :] = best
-        best_id = jnp.where(best <= t_max, best_id, 0.0)
-        out_id_ref[g, :, :] = best_id.astype(jnp.int32)
+        return jax.lax.fori_loop(0, n_entries, entry, init)
 
-        if emit_attrs:
-            # Second pass: emit the winning prim's shade-table row
-            # directly from VMEM — replaces the [N,32] XLA row gather.
-            # match is exactly 0/1, so attr_t @ match sums exactly one
-            # exact product per (component, ray): bit-exact f32 even
-            # through the MXU's bf16 decomposition at HIGHEST.
-            def attr_body(k, acc):
-                c = ids_ref[g, 0, k]
-                pid = (
-                    sub
-                    + jnp.float32(1.0 + pid_base)
-                    + (c.astype(jnp.float32) * tc)
-                )
-                match = (pid == best_id).astype(jnp.float32)  # (tc, r)
-                return acc + jax.lax.dot_general(
-                    attr_ref[c][:, :tc],  # (32, tc)
-                    match,
-                    (((1,), (0,)), ((), ())),
-                    precision=jax.lax.Precision.HIGHEST,
-                    preferred_element_type=jnp.float32,
-                )
-
-            acc0 = jnp.zeros((32, r), dtype=jnp.float32)
-            if early_exit:
-                # A chunk skipped by the final bound cannot contain any
-                # ray's winner (all its t >= entry > that ray's best),
-                # so its matmul contributes exact zeros — skip it.
-                worst_final = jnp.max(best)
-
-                def attr_body_ee(k, acc):
-                    return jax.lax.cond(
-                        ed_ref[g, 0, k] <= worst_final,
-                        lambda acc: attr_body(k, acc),
-                        lambda acc: acc,
-                        acc,
-                    )
-
-                rows_ref[:, g, :] = jax.lax.fori_loop(
-                    0, counts_ref[tile0 + g], attr_body_ee, acc0
-                )
-            else:
-                rows_ref[:, g, :] = jax.lax.fori_loop(
-                    0, counts_ref[tile0 + g], attr_body, acc0
-                )
-
-    def subtile_body(g, _):
-        jax.lax.cond(
-            counts_ref[tile0 + g] > 0,
-            lambda: subtile_full(g),
-            lambda: subtile_miss(g),
+    if any_hit:
+        cap = pay_ref[7][None, :]
+        # Blocked iff ANY hit lies inside (t_min, cap): min(t) < cap iff
+        # some t < cap, so this equals closest-hit-then-compare.
+        blk = sweep(
+            lambda ok, w, pid, blk: jnp.where(
+                ok & (w < cap), jnp.float32(1.0), blk
+            ),
+            jnp.zeros((step, r), jnp.float32),
         )
-        return 0
+        out_refs[0][...] = (jnp.max(blk, axis=0) > 0.0).astype(jnp.int32)
+        return
 
-    # Whole-group skip: secondary bounces leave most 32-tile groups
-    # with no live ray at all; their outputs are unspecified by the
-    # contract (callers mask by validity), so skip even the per-subtile
-    # loop overhead.  Valid-but-empty tiles (count 0 in a live group)
-    # still write proper misses through the cheap subtile_miss branch.
-    @pl.when(group_live_ref[pl.program_id(0)] > 0)
-    def _():
-        jax.lax.fori_loop(0, TILE_GROUP, subtile_body, 0)
+    def closest(ok, w, pid, carry):
+        bt, bid = carry
+        w = jnp.where(ok, w, miss)
+        better = w < bt  # ascending ids: ties keep the earlier prim
+        return jnp.where(better, w, bt), jnp.where(better, pid, bid)
+
+    bt, bid = sweep(
+        closest,
+        (jnp.full((step, r), miss), jnp.zeros((step, r), jnp.float32)),
+    )
+    best = jnp.min(bt, axis=0)
+    best_id = jnp.min(
+        jnp.where(bt == best[None, :], bid, jnp.float32(3.0e38)), axis=0
+    )
+    out_refs[0][...] = best
+    out_refs[1][...] = jnp.where(best <= t_max, best_id, 0.0).astype(
+        jnp.int32
+    )
+
+
+def _kernel_chunk_loop(
+    chunks: TriChunks,
+    ids: jax.Array,
+    counts: jax.Array,
+    payload: jax.Array,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    any_hit: bool,
+    rays_per_program: int,
+    tris_per_step: int,
+):
+    """The chunk loop as one Pallas call: grid (tiles, r / R)."""
+    t_tiles, r = payload.shape[1:]
+    tc = chunks.tri_chunk
+    rp = min(rays_per_program, r)
+    step = min(tris_per_step, tc)
+    if r % rp or tc % step:
+        raise ValueError(
+            f"rays per program {rp} must divide the tile width {r} and "
+            f"triangles per step {step} the chunk height {tc}"
+        )
+    mode = kernel_mode()
+    kernel = partial(
+        _packet_kernel, tc=tc, step=step,
+        t_min=t_min, t_max=t_max, eps=eps, any_hit=any_hit,
+    )
+    ray_spec = pl.BlockSpec((None, rp), lambda t, j: (t, j))
+    if any_hit:
+        out_shape = [jax.ShapeDtypeStruct((t_tiles, r), jnp.int32)]
+    else:
+        out_shape = [
+            jax.ShapeDtypeStruct((t_tiles, r), jnp.float32),
+            jax.ShapeDtypeStruct((t_tiles, r), jnp.int32),
+        ]
+    whole = lambda shape: pl.BlockSpec(shape, lambda t, j: (0,) * len(shape))
+    outs = pl.pallas_call(
+        kernel,
+        grid=(t_tiles, r // rp),
+        in_specs=[
+            whole(counts.shape),
+            whole(ids.shape),
+            whole(chunks.comp.shape),
+            pl.BlockSpec((8, None, rp), lambda t, j: (0, t, j)),
+        ],
+        out_specs=[ray_spec] * len(out_shape),
+        out_shape=out_shape,
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES
+        ),
+        backend="triton",
+        interpret=mode == INTERPRET,
+        name="packet_any_hit" if any_hit else "packet_closest_hit",
+    )(counts, ids, chunks.comp, payload)
+    if any_hit:
+        return outs[0] > 0
+    return outs[0], outs[1]
+
+
+def _lax_chunk_loop(
+    chunks: TriChunks,
+    ids: jax.Array,
+    counts: jax.Array,
+    payload: jax.Array,
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    any_hit: bool,
+):
+    """The chunk loop in plain ``lax``: one loop over list position;
+    step ``k`` gathers every tile's ``k``-th chunk and tests it against
+    the tile's rays ([T, tc, r] lattice, reduced over the chunk at once
+    to the lexicographic (t, id) minimum).  Same lists, same arithmetic
+    and the same winner as the kernel."""
+    tc = chunks.tri_chunk
+    ox, oy, oz, dx, dy, dz, excl = (payload[c][:, None, :] for c in range(7))
+    miss = jnp.float32(t_max + 1.0)
+    slot = jnp.arange(tc, dtype=jnp.int32)
+
+    def test(k):
+        cols = ids[:, k][:, None] * tc + slot[None, :]  # [T, tc]
+        tri = tuple(chunks.comp[j][cols][:, :, None] for j in range(NCOMP))
+        pid = (cols + 1).astype(jnp.float32)[:, :, None]
+        ok, w = mt_chunk_test(
+            tri, ox, oy, oz, dx, dy, dz, pid, excl,
+            t_min=t_min, t_max=t_max, eps=eps,
+        )
+        return ok & (k < counts)[:, None, None], w, pid
+
+    n_iter = jnp.max(counts)
+    if any_hit:
+        cap = payload[7][:, None, :]
+
+        def body(k, blk):
+            ok, w, _ = test(k)
+            return blk | jnp.any(ok & (w < cap), axis=1)
+
+        return jax.lax.fori_loop(
+            0, n_iter, body, jnp.zeros(payload.shape[1:], bool)
+        )
+
+    def body(k, carry):
+        bt, bid = carry
+        ok, w, pid = test(k)
+        w = jnp.where(ok, w, miss)
+        wmin = jnp.min(w, axis=1)
+        pmin = jnp.min(
+            jnp.where(w == wmin[:, None, :], pid, jnp.float32(3.0e38)),
+            axis=1,
+        )
+        better = wmin < bt  # earlier chunks hold smaller ids
+        return jnp.where(better, wmin, bt), jnp.where(better, pmin, bid)
+
+    bt, bid = jax.lax.fori_loop(
+        0, n_iter, body,
+        (
+            jnp.full(payload.shape[1:], miss),
+            jnp.zeros(payload.shape[1:], jnp.float32),
+        ),
+    )
+    return bt, jnp.where(bt <= t_max, bid, 0.0).astype(jnp.int32)
+
+
+def packet_closest_hit_tiled(
+    chunks: TriChunks,
+    payload: jax.Array,  # [8, T, r] f32 component-major ray tiles
+    valid: jax.Array,  # [T, r] bool
+    t_cap: jax.Array | None = None,  # [T, r]
+    *,
+    t_min: float,
+    t_max: float,
+    eps: float,
+    cull_block: int = CULL_BLOCK,
+    any_hit: bool = False,
+    refine: bool | int = False,
+    loop: str = "kernel",
+    rays_per_program: int = RAYS_PER_PROGRAM,
+    tris_per_step: int = TRIS_PER_STEP,
+):
+    """Closest hit over component-major ray tiles -> (t [T, r],
+    pid [T, r]); misses have pid 0 and t > t_max.
+
+    ``t_cap`` tightens culling only: hits beyond a ray's cap may or may
+    not be reported.  ``any_hit`` returns one blocked mask [T, r] bool
+    instead: True iff some primitive (other than the ray's exclusion)
+    lies within (t_min, cap), the cap read from payload row 7 — the
+    shadow-ray form.  ``refine`` picks the cull (see
+    :func:`chunk_lists`).  ``loop`` picks the chunk loop: ``"kernel"``
+    (the Pallas kernel) or ``"lax"`` (the plain reference).  Outputs
+    for invalid rays are unspecified."""
+    if chunks.num_chunks * chunks.tri_chunk + 1 >= 1 << 24:
+        # Prim ids travel as f32 in the loop; keep them exact.
+        raise ValueError(
+            "prim ids exceed f32 exact-integer range (2^24); scene too "
+            "large for exact exclusion/hit ids"
+        )
+    if loop not in ("kernel", "lax"):
+        raise ValueError(f"unknown chunk loop {loop!r}")
+    with jax.named_scope("cull"):
+        ids, counts = chunk_lists(
+            chunks, payload, valid, t_cap,
+            t_min=t_min, t_max=t_max, cull_block=cull_block, refine=refine,
+        )
+    window = dict(t_min=t_min, t_max=t_max, eps=eps, any_hit=any_hit)
+    with jax.named_scope("intersect"):
+        if loop == "kernel":
+            return _kernel_chunk_loop(
+                chunks, ids, counts, payload,
+                rays_per_program=rays_per_program,
+                tris_per_step=tris_per_step, **window,
+            )
+        return _lax_chunk_loop(chunks, ids, counts, payload, **window)
 
 
 def packet_closest_hit(
@@ -974,406 +769,38 @@ def packet_closest_hit(
     t_min: float,
     t_max: float,
     eps: float,
-    cull_block: int = CULL_BLOCK,
     ray_tile: int = RAY_TILE,
-    interpret: bool = False,
-    refine: bool = False,
+    **kwargs,
 ) -> tuple[jax.Array, jax.Array]:
-    """Closest hit over the chunked triangle soup -> (t [N], pid [N]).
-
-    ``t_cap`` tightens chunk culling only (results are still exact
-    closest hits up to ``t_max``): callers that only consume hits below
-    a per-ray bound — shadow rays vs their light distance — let whole
-    chunks beyond the bound be skipped.  Hits beyond a ray's cap may or
-    may not be reported; callers must not rely on them.
-
-    ``cull_block`` sets the culling granularity in chunks: interval
-    tests, the compaction argsort, and the per-tile lists all run at
-    ``Nc / cull_block`` width, and the kernel sweeps ``cull_block``
-    consecutive chunks per list entry.  1 recovers exact per-chunk
-    culling (MEASURED slower at every resolution — the [T, Nc] argsort
-    prelude dominates; see PERF.md)."""
+    """:func:`packet_closest_hit_tiled` over an AoS ray batch ->
+    (t [N], pid [N]): pads the rays to whole tile groups and lays them
+    out component-major.  Extra keywords pass through."""
     n = o.shape[0]
     t_tiles = max(1, -(-n // ray_tile))
-    t_groups = -(-t_tiles // TILE_GROUP)
-    t_tiles = t_groups * TILE_GROUP
+    t_tiles = -(-t_tiles // TILE_GROUP) * TILE_GROUP
     n_pad = t_tiles * ray_tile
 
-    def pad_rays(x, fill=0.0):
-        return jnp.pad(x, ((0, n_pad - n), (0, 0)), constant_values=fill)
-
-    o_p = pad_rays(o).reshape(t_tiles, ray_tile, 3)
-    d_p = pad_rays(d).reshape(t_tiles, ray_tile, 3)
-    excl_p = jnp.pad(excl, (0, n_pad - n)).reshape(t_tiles, ray_tile)
+    def tiles(x):
+        x = jnp.pad(x, ((0, n_pad - n),) + ((0, 0),) * (x.ndim - 1))
+        return x.reshape((t_tiles, ray_tile) + x.shape[1:])
 
     if valid is None:
         valid = jnp.ones((n,), dtype=bool)
-    valid = jnp.pad(valid, (0, n_pad - n)).reshape(t_tiles, ray_tile)
-
-    cap_p = (
-        None
-        if t_cap is None
-        else jnp.pad(t_cap, (0, n_pad - n)).reshape(t_tiles, ray_tile)
-    )
-    # Component-major payload [8, T, r]: ox,oy,oz,dx,dy,dz,excl,pad.
     payload = jnp.concatenate(
         [
-            o_p.transpose(2, 0, 1),  # [3, T, r]
-            d_p.transpose(2, 0, 1),
-            excl_p[None].astype(jnp.float32),
+            tiles(o).transpose(2, 0, 1),  # [3, T, r]
+            tiles(d).transpose(2, 0, 1),
+            tiles(excl)[None].astype(jnp.float32),
             jnp.zeros((1, t_tiles, ray_tile), dtype=jnp.float32),
         ],
         axis=0,
     )
     out_t, out_id = packet_closest_hit_tiled(
-        chunks, payload, valid, cap_p,
-        t_min=t_min, t_max=t_max, eps=eps,
-        cull_block=cull_block, interpret=interpret, refine=refine,
+        chunks, payload, tiles(valid),
+        None if t_cap is None else tiles(t_cap),
+        t_min=t_min, t_max=t_max, eps=eps, **kwargs,
     )
     return out_t.reshape(n_pad)[:n], out_id.reshape(n_pad)[:n]
-
-
-def packet_closest_hit_tiled(
-    chunks: TriChunks,
-    payload: jax.Array,  # [8, T, r] f32 component-major ray tiles
-    valid: jax.Array,  # [T, r] bool
-    t_cap: jax.Array | None = None,  # [T, r]
-    *,
-    t_min: float,
-    t_max: float,
-    eps: float,
-    cull_block: int = CULL_BLOCK,
-    interpret: bool = False,
-    pid_base: int = 0,
-    emit_rows: bool = False,
-    any_hit: bool = False,
-    refine: bool = False,
-    collapse: bool = True,
-    early_exit: bool = False,
-):
-    """Closest hit over pre-tiled component-major rays -> (t [T, r],
-    pid [T, r]) — plus the winning prims' shade-table rows
-    ([32, T, r]) when ``emit_rows`` is set.
-
-    ``early_exit`` (round-5 prototype, default OFF) sorts each tile's
-    culled chunk list front-to-back by conservative entry distance and
-    skips list entries whose entry bound exceeds the tile's running
-    worst best-t (refreshed every ``EXIT_CHECK`` iterations — stale
-    bounds only make skips rarer, never wrong).  Output is
-    BIT-identical to the default path: a skipped chunk's hits satisfy
-    ``t >= entry > best_t[r]`` for every ray, and the in-loop update
-    gains an explicit (t, pid)-lexicographic tie-break so the reorder
-    cannot flip equal-t winners (the default ascending-id scan keeps
-    the smallest pid; so does the tie-break).  Ignored for ``any_hit``
-    (its exit lever is the chained validity).  Sized round 4 at <=22%
-    of the primary call's blocks (PERF.md 'remaining divergence
-    levers'); measured by experiments/early_exit_ab.py.
-
-    ``collapse`` (default on) removes the Pallas pipeline's block
-    traffic for DEAD 32-tile groups: round-4 profiling showed each
-    secondary call carries a ~0.5 us/tile floor that neither the
-    whole-group body skip nor live-tile compaction touches, because
-    the pipeline still streams every grid step's payload/output blocks
-    through VMEM (e.g. the rows output alone is 32 x T x r f32 =
-    264 MB/call at 1080p) regardless of gating.  The fix: grid step
-    ``g``'s block index comes from a prefetched ``cidx[g]`` = index of
-    the last live group <= g, so a run of dead steps repeats the
-    previous live index — Mosaic's revisiting optimization then skips
-    the input copies and defers the (unchanged) output write for the
-    whole run.  Exact by the existing contract: a dead group's outputs
-    are unspecified either way (without collapse they were the stale
-    previous block's values; with it, whatever the output buffer
-    held), and live groups keep ``cidx[g] == g``.
-
-    ``any_hit`` returns a single blocked mask [T, r] bool instead: True
-    iff some primitive lies within (t_min, cap_ray), where cap_ray is
-    read from payload row 7 (the occlusion distance written by
-    shade_pre).  Exactly equivalent to closest-hit-then-compare
-    (min(t) < cap iff any t < cap) at less kernel work — the shadow
-    fast path.
-
-    This is the zero-relayout entry for the tiled frame path
-    (:func:`rt_rs_tpu.ops.shade.trace_tiled`): the payload IS the
-    kernel's native ray layout, so no pad/reshape/transpose runs per
-    call.  ``T`` must be a multiple of ``TILE_GROUP``.  ``pid_base``
-    statically shifts chunk-local prim ids into a global id space
-    (segmented tables): exclusion tests and returned ids are then
-    global, with misses still 0.
-
-    ``emit_rows`` requires the chunk table to carry ``attr_t`` (built
-    with ``shade_rows``); the kernel's second pass replaces the XLA
-    [N, 32] row gather bit-exactly (match-matmul of 0/1 against the
-    attr table; miss rays get all-zero rows, whose every consumed field
-    is masked by validity downstream).
-
-    ``refine`` swaps the per-tile interval cull for the exact per-ray
-    slab cull (:func:`chunk_overlap_mask_perray_cm`) — same
-    conservative contract, far shorter lists when the tile's rays
-    diverge, at an extra dense [r, Nc] lattice per tile.  Callers
-    enable it for secondary-bounce/shadow batches (see
-    ``ops.shade.trace_tiled``); for coherent primaries it buys
-    nothing and costs the lattice."""
-    nc = chunks.num_chunks
-    if nc % cull_block:
-        raise ValueError(
-            f"chunk count {nc} not divisible by cull_block {cull_block} "
-            f"(builders pad to CHUNK_ALIGN={CHUNK_ALIGN})"
-        )
-    # Prim ids (incl. the global pid_base shift) travel as f32 in the
-    # kernel; they must stay exactly representable (same guard as the
-    # DMA streaming kernel, packet_stream.py).
-    if pid_base + nc * int(chunks.comp.shape[1]) + 1 >= 1 << 24:
-        raise ValueError(
-            "prim ids exceed f32 exact-integer range (2^24); scene too "
-            "large for exact exclusion/hit ids"
-        )
-    nb = nc // cull_block
-    t_tiles, ray_tile = valid.shape
-    if t_tiles % TILE_GROUP:
-        raise ValueError(
-            f"tile count {t_tiles} not a multiple of {TILE_GROUP}"
-        )
-    t_groups = t_tiles // TILE_GROUP
-
-    early_exit = early_exit and not any_hit
-    if early_exit and cull_block != 1:
-        raise ValueError("early_exit requires cull_block == 1")
-    inv3 = 1.0 / payload[3:6]
-    if cull_block > 1:
-        blk_min = jnp.min(
-            chunks.bmin.reshape(nb, cull_block, 3), axis=1
-        )
-        blk_max = jnp.max(
-            chunks.bmax.reshape(nb, cull_block, 3), axis=1
-        )
-    else:
-        blk_min, blk_max = chunks.bmin, chunks.bmax
-    # refine: False/0 = tile-interval cull; 1 = exact per-ray slabs;
-    # True or n>1 = interval cull at n-ray subgroups (True -> the
-    # measured-optimal REFINE_SUB).
-    if refine:
-        n_sub = REFINE_SUB if refine is True else int(refine)
-        if n_sub == 1:
-            overlap = _perray_overlap_kernel_call(
-                payload, valid, blk_min, blk_max,
-                t_min=t_min, t_max=t_max, t_cap=t_cap,
-                interpret=interpret,
-            )
-        else:
-            overlap = chunk_overlap_mask_subgroup_cm(
-                payload[0:3], inv3, valid, blk_min, blk_max,
-                t_min=t_min, t_max=t_max, t_cap=t_cap, sub=n_sub,
-            )
-    else:
-        overlap = chunk_overlap_mask_cm(
-            payload[0:3], inv3, valid, blk_min, blk_max,
-            t_min=t_min, t_max=t_max, t_cap=t_cap,
-        )  # [T, Nb]
-
-    nc_pad = -(-nc // 128) * 128  # SMEM row padding
-    ed = None
-    if early_exit:
-        # Front-to-back key: the conservative per-(tile, chunk) entry
-        # lower bound from the INTERVAL formulation (a valid bound for
-        # every ray in the tile, so correct for per-ray-refined list
-        # membership too).  Stable sort keeps ascending chunk ids
-        # among equal keys.
-        _, near = chunk_overlap_mask_cm(
-            payload[0:3], inv3, valid, blk_min, blk_max,
-            t_min=t_min, t_max=t_max, t_cap=t_cap, want_near=True,
-        )
-        big_ed = jnp.float32(3.0e38)
-        key = jnp.where(overlap, near, big_ed)
-        order = jnp.argsort(key, axis=1, stable=True).astype(jnp.int32)
-        ed = jnp.pad(
-            jnp.take_along_axis(key, order, axis=1),
-            ((0, 0), (0, nc_pad - nc)),
-            constant_values=3.0e38,
-        )
-    else:
-        # Compact block ids per tile (stable argsort puts overlapping
-        # blocks first, ascending), then expand each block to its
-        # cull_block consecutive chunk ids.
-        order = jnp.argsort(
-            ~overlap, axis=1, stable=True
-        ).astype(jnp.int32)
-    counts = jnp.sum(overlap, axis=1, dtype=jnp.int32) * cull_block
-    if cull_block > 1:
-        order = (
-            order[:, :, None] * cull_block
-            + jnp.arange(cull_block, dtype=jnp.int32)[None, None, :]
-        ).reshape(t_tiles, nc)
-
-    ids = jnp.pad(order, ((0, 0), (0, nc_pad - nc)))
-    tri = chunks.comp
-
-    group_live = (
-        valid.reshape(t_groups, TILE_GROUP * ray_tile)
-        .any(axis=1)
-        .astype(jnp.int32)
-    )
-    # Interpret-mode Pallas degrades pathologically on data-dependent
-    # index maps (minutes for a 1-group call); the collapse is a pure
-    # Mosaic-pipeline optimization with unchanged visible semantics, so
-    # interpret runs (the CPU suite) keep static indexing.
-    collapse = collapse and not interpret
-    if collapse:
-        # Collapsed block index per grid step: the last live group's
-        # index (clamped to 0 before any live group) — dead runs repeat
-        # an index so the pipeline skips their block copies.
-        cidx = jnp.maximum(
-            jax.lax.cummax(
-                jnp.where(
-                    group_live > 0,
-                    jnp.arange(t_groups, dtype=jnp.int32),
-                    jnp.int32(-1),
-                )
-            ),
-            0,
-        )
-    else:
-        cidx = jnp.arange(t_groups, dtype=jnp.int32)
-    if emit_rows and chunks.attr_t is None:
-        raise ValueError(
-            "emit_rows requires a chunk table built with shade_rows"
-        )
-    if emit_rows and any_hit:
-        raise ValueError("emit_rows and any_hit are mutually exclusive")
-    kernel = partial(
-        _mt_kernel, t_min=t_min, t_max=t_max, eps=eps,
-        pid_base=float(pid_base), emit_attrs=emit_rows, any_hit=any_hit,
-        early_exit=early_exit,
-    )
-
-    # Index maps receive the prefetched scalars (group_live, counts,
-    # cidx) after the grid index; blocks follow the collapsed index.
-    def _lead(t, gl, cn, cx):
-        return (cx[t], 0, 0)
-
-    def _mid(t, gl, cn, cx):
-        return (0, cx[t], 0)
-
-    def _const(t, gl, cn, cx):
-        return (0, 0, 0)
-
-    in_specs = [
-        pl.BlockSpec(
-            (TILE_GROUP, 1, nc_pad),
-            _lead,
-            memory_space=pltpu.SMEM,
-        ),
-        pl.BlockSpec((8, TILE_GROUP, ray_tile), _mid),
-        pl.BlockSpec((nc, chunks.comp.shape[1], LANES), _const),
-    ]
-    if any_hit:
-        out_specs = [
-            pl.BlockSpec((TILE_GROUP, 1, ray_tile), _lead),
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((t_tiles, 1, ray_tile), jnp.int32),
-        ]
-    else:
-        out_specs = [
-            pl.BlockSpec((TILE_GROUP, 1, ray_tile), _lead),
-            pl.BlockSpec((TILE_GROUP, 1, ray_tile), _lead),
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((t_tiles, 1, ray_tile), jnp.float32),
-            jax.ShapeDtypeStruct((t_tiles, 1, ray_tile), jnp.int32),
-        ]
-    operands = [group_live, counts, cidx, ids[:, None, :], payload, tri]
-    if emit_rows:
-        in_specs.append(pl.BlockSpec((nc, 32, LANES), _const))
-        operands.append(chunks.attr_t)
-        out_specs.append(
-            pl.BlockSpec((32, TILE_GROUP, ray_tile), _mid)
-        )
-        out_shape.append(
-            jax.ShapeDtypeStruct((32, t_tiles, ray_tile), jnp.float32)
-        )
-    if early_exit:
-        # Sorted per-entry conservative entry distances (f32 SMEM),
-        # same layout/indexing as ids.
-        in_specs.append(
-            pl.BlockSpec(
-                (TILE_GROUP, 1, nc_pad), _lead, memory_space=pltpu.SMEM
-            )
-        )
-        operands.append(ed[:, None, :])
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(t_groups,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*operands)
-
-    if any_hit:
-        return outs[0].reshape(t_tiles, ray_tile) > 0
-    out_t = outs[0].reshape(t_tiles, ray_tile)
-    out_id = outs[1].reshape(t_tiles, ray_tile)
-    if emit_rows:
-        return out_t, out_id, outs[2]
-    return out_t, out_id
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class SegmentedTriChunks:
-    """Chunk table pre-split into VMEM-sized segments.
-
-    Pre-slicing at build time (concrete arrays) keeps the per-frame
-    graph free of table-slice copies; measured equivalent to slicing
-    inside the jit, so this is hygiene, not a hot-path requirement.
-    ``prim_base`` is the global prim-id offset of each segment
-    (static)."""
-
-    segments: tuple[TriChunks, ...]
-    prim_base: tuple[int, ...] = dataclasses.field(
-        metadata=dict(static=True)
-    )
-
-    @property
-    def num_chunks(self) -> int:
-        return sum(s.num_chunks for s in self.segments)
-
-
-def split_chunks(
-    chunks: TriChunks,
-    max_seg_tris: int | None = None,
-) -> SegmentedTriChunks:
-    """Split a (concrete) chunk table into VMEM-sized segments.
-
-    Call this at build time on concrete arrays so each segment is its
-    own buffer (see SegmentedTriChunks).  A table carrying the
-    emit-rows attribute table is sliced along with it, and the default
-    segment size shrinks to the with-attrs VMEM cap so every segment
-    can still run the rows/any-hit kernels.  The slicing/sizing policy
-    lives in :func:`split_chunks_traced` (the in-jit twin); this
-    wrapper only materializes each slice as its own buffer."""
-
-    def concrete(a):
-        return None if a is None else jnp.asarray(np.asarray(a))
-
-    seg = split_chunks_traced(chunks, max_seg_tris)
-    return SegmentedTriChunks(
-        segments=tuple(
-            TriChunks(
-                comp=concrete(s.comp),
-                bmin=concrete(s.bmin),
-                bmax=concrete(s.bmax),
-                num_chunks=s.num_chunks,
-                attr_t=concrete(s.attr_t),
-            )
-            for s in seg.segments
-        ),
-        prim_base=seg.prim_base,
-    )
 
 
 def tag_refine(fn, mode: str):
@@ -1381,317 +808,10 @@ def tag_refine(fn, mode: str):
     ``ops.shade.trace_tiled`` can opt bounce/shadow batches into the
     per-ray cull: bake ``refine=True`` for mode ``"all"`` (call-site
     kwargs still override) and advertise support for ``"bounces"``.
-    Shared by every backend that exposes tiled entries (pbvh, lbvh,
-    the scene-parallel wrappers)."""
+    Shared by every backend that exposes tiled entries."""
     if mode not in ("off", "bounces", "all"):
         raise ValueError(f"unknown refine mode {mode!r}")
     if mode == "all":
         fn = partial(fn, refine=True)
     fn.supports_refine = mode != "off"
     return fn
-
-
-def flatten_segments(accel, pad_multiple: int = 1) -> TriChunks:
-    """The single flat chunk table behind any accel variant (host-side).
-
-    Segments were sliced from one table at build time, so concatenating
-    them along the chunk axis reproduces it exactly; Dual tables flatten
-    to their coarse member (the fine table is a perf twin over the same
-    id space).  ``pad_multiple`` appends never-hit chunks at the tail
-    (builder convention: zero components -> det 0, inverted bounds ->
-    always culled) so the chunk count divides it — the scene-parallel
-    sharder needs equal per-shard slices.  All assembly happens in
-    host numpy with ONE device conversion at the end (these tables can
-    be hundreds of MB for beyond-VMEM scenes)."""
-    if isinstance(accel, DualTriChunks):
-        accel = accel.coarse
-    if isinstance(accel, TriChunks):
-        parts = (accel,)
-    elif isinstance(accel, SegmentedTriChunks):
-        parts = accel.segments
-    else:
-        raise TypeError(
-            f"no flat chunk table behind {type(accel).__name__}"
-        )
-    if len(parts) == 1 and parts[0].num_chunks % pad_multiple == 0:
-        return parts[0]  # already flat + aligned: no host round trip
-    comp = np.concatenate([np.asarray(s.comp) for s in parts])
-    bmin = np.concatenate([np.asarray(s.bmin) for s in parts])
-    bmax = np.concatenate([np.asarray(s.bmax) for s in parts])
-    attr = None
-    if all(s.attr_t is not None for s in parts):
-        attr = np.concatenate([np.asarray(s.attr_t) for s in parts])
-    nc = sum(s.num_chunks for s in parts)
-    nc_pad = -(-nc // pad_multiple) * pad_multiple
-    if nc_pad != nc:
-        extra = nc_pad - nc
-        tc = comp.shape[1]
-        fmax = np.float32(np.finfo(np.float32).max)
-        comp = np.concatenate(
-            [comp, np.zeros((extra, tc, LANES), np.float32)]
-        )
-        bmin = np.concatenate(
-            [bmin, np.full((extra, 3), fmax, np.float32)]
-        )
-        bmax = np.concatenate(
-            [bmax, np.full((extra, 3), -fmax, np.float32)]
-        )
-        if attr is not None:
-            attr = np.concatenate(
-                [attr, np.zeros((extra, 32, LANES), np.float32)]
-            )
-    return TriChunks(
-        comp=jnp.asarray(comp),
-        bmin=jnp.asarray(bmin),
-        bmax=jnp.asarray(bmax),
-        num_chunks=nc_pad,
-        attr_t=None if attr is None else jnp.asarray(attr),
-    )
-
-
-def split_chunks_traced(
-    chunks: TriChunks,
-    max_seg_tris: int | None = None,
-) -> SegmentedTriChunks:
-    """:func:`split_chunks` on traced arrays (static-index jnp slices).
-
-    For use INSIDE jit/shard_map — e.g. a scene-parallel shard whose
-    local chunk slice exceeds the VMEM-resident cap and must run the
-    segmented kernel.  Slicing inside the jit was measured equivalent
-    to pre-slicing (PERF.md), so this carries no hot-path penalty."""
-    nc = chunks.num_chunks
-    tc = int(chunks.comp.shape[1])
-    if max_seg_tris is None:
-        # Size segments in BYTES like resident_fits: comp costs
-        # 512 B/tri at any tc, attr_t a fixed 16 KB/chunk (16384/tc
-        # B/tri — 4x the tc=64 rate at tc=16, so a tri-count cap
-        # calibrated for tc=64 would overshoot VMEM at smaller tc).
-        # At tc=64 this reproduces the historical caps exactly
-        # (12,288 plain / 8,192 with attrs).
-        budget = MAX_VMEM_CHUNKS * TRI_CHUNK * 512
-        per_tri = 512 + (
-            (32 * LANES * 4) // tc if chunks.attr_t is not None else 0
-        )
-        max_seg_tris = budget // per_tri
-    seg_chunks = max(
-        CHUNK_ALIGN, (max_seg_tris // tc) // CHUNK_ALIGN * CHUNK_ALIGN
-    )
-    segments = []
-    bases = []
-    for s0 in range(0, nc, seg_chunks):
-        s1 = min(nc, s0 + seg_chunks)
-        segments.append(
-            TriChunks(
-                comp=chunks.comp[s0:s1],
-                bmin=chunks.bmin[s0:s1],
-                bmax=chunks.bmax[s0:s1],
-                num_chunks=s1 - s0,
-                attr_t=(
-                    None if chunks.attr_t is None else chunks.attr_t[s0:s1]
-                ),
-            )
-        )
-        bases.append(s0 * tc)
-    return SegmentedTriChunks(
-        segments=tuple(segments), prim_base=tuple(bases)
-    )
-
-
-def _check_total_prims_f32(seg: "SegmentedTriChunks") -> None:
-    """Global prim ids (and exclusion ids fed to per-segment kernels)
-    must stay exactly representable in f32 (< 2^24); the per-call
-    guard in packet_closest_hit_tiled covers pid_base shifts, this
-    covers the excl-shift form used by the AoS segmented path."""
-    last = seg.segments[-1]
-    total = seg.prim_base[-1] + last.num_chunks * int(last.comp.shape[1])
-    if total + 1 >= 1 << 24:
-        raise ValueError(
-            "prim ids exceed f32 exact-integer range (2^24); scene too "
-            "large for exact exclusion/hit ids"
-        )
-
-
-def packet_closest_hit_segmented(
-    seg: SegmentedTriChunks,
-    o: jax.Array,
-    d: jax.Array,
-    excl: jax.Array,
-    valid: jax.Array | None = None,
-    t_cap: jax.Array | None = None,
-    *,
-    t_min: float,
-    t_max: float,
-    eps: float,
-    cull_block: int = CULL_BLOCK,
-    ray_tile: int = RAY_TILE,
-    interpret: bool = False,
-    refine: bool = False,
-) -> tuple[jax.Array, jax.Array]:
-    """Closest hit over a table larger than VMEM: run the resident
-    kernel per pre-sliced VMEM-sized segment and merge.
-
-    Each segment is an ordinary ``packet_closest_hit`` call — per-tile
-    EXACT interval culling and compacted lists, unlike the DMA-streaming
-    kernel's group-union block lists.  Merging keeps the smaller t; on
-    exact ties the earlier segment wins, which preserves the naive
-    loop's first-strictly-smaller semantics because prim ids grow with
-    segment index."""
-    _check_total_prims_f32(seg)
-    best_t = None
-    best_id = None
-    for base, chunk_seg in zip(seg.prim_base, seg.segments):
-        # The kernel compares prim ids in segment-local space; shift the
-        # exclusion in, and the returned hits back out.  Rays whose excl
-        # lies outside this segment get an out-of-range local id that
-        # matches nothing (exactly right).
-        excl_local = excl - jnp.int32(base)
-        # Chain the running best into the next segment's cull (exact —
-        # see packet_closest_hit_segmented_tiled's chain note).
-        cap_s = t_cap
-        if best_t is not None:
-            cap_s = (
-                best_t if cap_s is None else jnp.minimum(cap_s, best_t)
-            )
-        t_s, id_s = packet_closest_hit(
-            chunk_seg, o, d, excl_local, valid, cap_s,
-            t_min=t_min, t_max=t_max, eps=eps,
-            cull_block=cull_block, ray_tile=ray_tile, interpret=interpret,
-            refine=refine,
-        )
-        id_s = jnp.where(id_s > 0, id_s + jnp.int32(base), 0)
-        if best_t is None:
-            best_t, best_id = t_s, id_s
-        else:
-            better = t_s < best_t
-            best_t = jnp.where(better, t_s, best_t)
-            best_id = jnp.where(better, id_s, best_id)
-    return best_t, best_id
-
-
-def packet_closest_hit_segmented_tiled(
-    seg: SegmentedTriChunks,
-    payload: jax.Array,  # [8, T, r] component-major; excl row is GLOBAL
-    valid: jax.Array,  # [T, r]
-    t_cap: jax.Array | None = None,
-    *,
-    t_min: float,
-    t_max: float,
-    eps: float,
-    cull_block: int = CULL_BLOCK,
-    interpret: bool = False,
-    emit_rows: bool = False,
-    any_hit: bool = False,
-    chain: bool = True,
-    refine: bool = False,
-    collapse: bool = True,
-    early_exit: bool = False,
-    seg_order: tuple[int, ...] | None = None,
-):
-    """Tiled closest hit over a segmented (beyond-VMEM) table.
-
-    ``pid_base`` makes each segment's kernel test exclusion against and
-    emit GLOBAL prim ids directly, so the merge is a min-t select with
-    a (t, pid)-lexicographic tie-break: equal-t collisions keep the
-    SMALLEST global prim id, which is exactly the naive loop's
-    first-strictly-smaller semantics regardless of segment visit
-    order.  (In scene order the tie-break is redundant — prim ids grow
-    with segment index, so the earlier segment already wins — but it
-    is what makes ``seg_order`` semantically invisible.)
-
-    ``seg_order`` (round 5) statically permutes the segment visit
-    order.  Results are EXACT for any permutation (the lexicographic
-    merge above; any-hit's OR-merge is order-independent); the point
-    is ``chain`` pruning — visiting segments camera-front-to-back lets
-    each segment's hits cap the (farther) rest, measured -22% entries
-    on the 50K-tri canyon at a side-on view where scene order happens
-    to be exactly back-to-front (experiments/seg_order_ab.py).  The
-    caller picks the order host-side from the camera (the jit cache
-    keys on it; see Renderer).
-
-    ``any_hit`` ORs the per-segment blocked masks — a ray is occluded
-    iff some segment occludes it.  ``emit_rows`` (requires per-segment
-    attr tables; see :func:`split_chunks`) selects the min-t winner's
-    rows across segments: each segment's kernel emits bit-exact rows
-    for its own hits, and the [32, T, r] select keeps bit-exactness
-    (VERDICT round-2 item 3 — beyond-VMEM scenes get the same fast
-    paths as resident ones).
-
-    ``chain`` threads each segment's running result into the next
-    segment's conservative cull — the wavefront realization of the
-    hierarchy pruning the reference gets from its tree descent
-    (bvh.rs:321-350), with NO data-dependent control flow: closest-hit
-    passes ``min(t_cap, best-so-far)`` as the next call's per-ray cap
-    (the prelude culls chunks entirely beyond every live ray's cap),
-    any-hit deactivates already-blocked rays.  Results are EXACT
-    either way: a chunk culled by the cap satisfies ``near_lb >
-    max_r best_t[r]``, so its hits could only lose the min-t merge
-    (ties keep the earlier segment, matching the naive prim-order
-    semantics), and a blocked ray's verdict is already final.  The
-    cost is serializing the segment preludes against the previous
-    kernel; measured on TPU (PERF.md round 3)."""
-    if emit_rows and any_hit:
-        raise ValueError("emit_rows and any_hit are mutually exclusive")
-    n_seg = len(seg.segments)
-    if seg_order is None:
-        seg_order = tuple(range(n_seg))
-    elif sorted(seg_order) != list(range(n_seg)):
-        raise ValueError(
-            f"seg_order {seg_order!r} is not a permutation of "
-            f"range({n_seg})"
-        )
-    visit = [(seg.prim_base[s], seg.segments[s]) for s in seg_order]
-    if any_hit:
-        blocked = None
-        valid_s = valid
-        for base, chunk_seg in visit:
-            b_s = packet_closest_hit_tiled(
-                chunk_seg, payload, valid_s, t_cap,
-                t_min=t_min, t_max=t_max, eps=eps,
-                cull_block=cull_block, interpret=interpret,
-                pid_base=base, any_hit=True, refine=refine,
-                collapse=collapse,
-            )
-            # The kernel's outputs are unspecified for invalid rays —
-            # mask before merging (chained calls shrink validity).
-            b_s = b_s & valid_s
-            blocked = b_s if blocked is None else (blocked | b_s)
-            if chain:
-                valid_s = valid & ~blocked
-        return blocked
-    best_t = None
-    best_id = None
-    best_rows = None
-    for base, chunk_seg in visit:
-        cap_s = t_cap
-        if chain and best_t is not None:
-            cap_s = (
-                best_t if cap_s is None else jnp.minimum(cap_s, best_t)
-            )
-        out = packet_closest_hit_tiled(
-            chunk_seg, payload, valid, cap_s,
-            t_min=t_min, t_max=t_max, eps=eps,
-            cull_block=cull_block, interpret=interpret, pid_base=base,
-            emit_rows=emit_rows, refine=refine, collapse=collapse,
-            early_exit=early_exit,
-        )
-        if emit_rows:
-            t_s, id_s, rows_s = out
-        else:
-            t_s, id_s = out
-        if best_t is None:
-            best_t, best_id = t_s, id_s
-            if emit_rows:
-                best_rows = rows_s
-        else:
-            # (t, pid)-lexicographic: equal-t keeps the smallest global
-            # prim id — visit-order invariant (see docstring).
-            better = (t_s < best_t) | (
-                (t_s == best_t) & (id_s < best_id)
-            )
-            best_t = jnp.where(better, t_s, best_t)
-            best_id = jnp.where(better, id_s, best_id)
-            if emit_rows:
-                best_rows = jnp.where(better[None], rows_s, best_rows)
-    if emit_rows:
-        return best_t, best_id, best_rows
-    return best_t, best_id

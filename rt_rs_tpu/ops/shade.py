@@ -15,7 +15,7 @@ Op-for-op parity with ``src/lib/shaders/compute.wgsl``:
   ``albedo.z`` for bounce > 0, perfect mirror continuation
   (compute.wgsl:219-280).
 
-Where the WGSL runs this per pixel with ``break`` on miss, the TPU
+Where the WGSL runs this per pixel with ``break`` on miss, this
 version runs the whole ray batch with an ``active`` mask — dead rays
 simply stop contributing (static shapes; no data-dependent control
 flow, so XLA fuses the entire bounce loop into one program).
@@ -149,7 +149,7 @@ def camera_rays(
     packet tile becomes a compact bh x bw pixel block instead of a
     128 x 1 strip, so the tile's frustum (and every secondary packet's
     origin bound) tightens and conservative chunk culling sheds more
-    work (measured in PERF.md).  Dimensions that don't divide the block
+    work.  Dimensions that don't divide the block
     are padded with clamped edge rays and cropped by
     ``unblock_colors``.
     """
@@ -252,13 +252,10 @@ def compacting(intersect_fn: IntersectFn) -> IntersectFn:
     "compaction between bounces" of the BASELINE design; the reference
     has no analogue (SIMT threads simply diverge).
 
-    MEASURED (v5e, teatime): full-sort compaction LOSES — XLA's
-    on-device sort over millions of rays costs far more than the
-    coherence it buys (1080p frame 553 ms -> 2026 ms), because the
-    packet kernel already skips dead tiles via the validity mask and
-    static shapes mean the tile count doesn't shrink.  It is therefore
-    OFF by default (``trace(..., compact=False)``); a cheaper
-    segmented/counting pack is future work.
+    It is OFF by default (``trace(..., compact=False)``): an on-device
+    sort over every ray of the batch costs more than the coherence it
+    buys, since the packet tracer already skips dead tiles via the
+    validity mask and static shapes keep the tile count fixed.
     """
 
     def wrapped(o, d, excl, valid, t_cap=None):
@@ -456,18 +453,14 @@ def trace(
 
 
 # ----------------------------------------------------------------------
-# Tiled frame path: component-major ray tiles + fused Pallas shading.
+# Tiled frame path: component-major ray tiles end to end.
 #
-# The XLA bounce loop above is the semantic reference (oracle-verified),
-# but at 1080p it costs ~40 ms per bounce on TPU — [N,3]-shaped
-# elementwise passes, fusion barriers around each intersect custom
-# call, and full-size work on bounces that are almost entirely dead
-# (frame profiling in PERF.md).  The tiled twin below keeps rays in the
-# packet kernel's native layout end to end ([8, T, r]: components on
-# sublanes, rays on lanes) and runs each bounce's shading as two fused
-# Pallas kernels that skip dead tile subgroups
-# (rt_rs_tpu/ops/pallas/shade_tile.py).  Same math op-for-op; outputs
-# agree with trace() to ~1 ULP (tests/test_shade_tiled.py).
+# The XLA bounce loop above is the semantic reference (oracle-verified).
+# Its [N, 3] arrays and per-bounce reshapes are replaced below by the
+# packet tracer's native layout ([8, T, r]: components first, rays
+# last), with per-bounce shading as whole-array elementwise math
+# (rt_rs_tpu/ops/shade_tile.py).  Same math op-for-op; outputs agree
+# with trace() to ~1 ULP (tests/test_shade_tiled.py).
 
 # Tiled intersect: fn(payload [8,T,r], valid [T,r], t_cap=None [T,r])
 #   -> (t [T,r], pid [T,r]); payload row 6 carries the exclusion id.
@@ -487,12 +480,12 @@ def camera_ray_tiles(
     """Primary rays as component-major tiles.
 
     -> (payload [8, T, r], valid [T, r], n_pixels) where ``T`` is padded
-    to a multiple of the kernels' TILE_GROUP and ``n_pixels`` is the
+    to a multiple of the packet tracer's TILE_GROUP and ``n_pixels`` is the
     block-padded pixel count (= what :func:`unblock_colors` consumes).
     Per-ray values are bit-identical to :func:`camera_rays`; only the
     memory layout differs (no [N, 3] arrays are materialized).
     """
-    from rt_rs_tpu.ops.pallas.shade_tile import TILE_GROUP
+    from rt_rs_tpu.ops.pallas.packet_trace import TILE_GROUP
 
     if rows is None:
         rows = height
@@ -556,10 +549,7 @@ def trace_tiled(
     payload: jax.Array,  # [8, T, r] primary rays
     valid: jax.Array,  # [T, r]
     camera_pos: jax.Array,  # [3] (headlight position)
-    interpret: bool = False,
-    intersect_rows_fn: TiledIntersectFn | None = None,
     intersect_anyhit_fn: TiledIntersectFn | None = None,
-    fuse_bounce: bool = False,
     shadow_cull: bool = True,
     retile: bool = False,
     narrow: int | None = None,
@@ -568,64 +558,37 @@ def trace_tiled(
 
     Semantics identical to :func:`trace` (same light order: headlight
     first); requires ``scene.no_negative_materials`` (shadow validity
-    via ``pid != 0``).
+    via ``pid != 0``).  Hit rows come from ONE [N, 32] shade-table
+    gather per bounce.
 
-    ``intersect_rows_fn`` (when the backend provides one) emits the
-    winning prims' shade-table rows straight from the kernel, so the
-    bounce loop runs with ZERO XLA row gathers; closest-hit and shadow
-    batches are then traced as separate calls (shadow rays don't need
-    rows).  Without it, rows come from one [N, 32] gather per bounce
-    and the shadow + next-bounce batch is fused into one call.
-
-    ``fuse_bounce`` runs shade_post(b) and shade_pre(b+1) as ONE fused
-    kernel (identical math — the fused kernel reuses the same subgroup
-    bodies).  MEASURED flat-to-slightly-slower on real TPU at every
-    size (the in-graph per-launch cost is smaller than the fused
-    kernel's loss of cross-kernel pipelining; PERF.md round 3), so the
-    default is off; the knob and kernel remain for A/B coverage.
+    ``intersect_anyhit_fn`` (when the backend provides one) traces each
+    bounce's shadow rays as an occlusion-only call and the next
+    bounce's rays as their own closest-hit call.  Without it, the
+    shadow and next-bounce rays share one closest-hit call.
 
     ``shadow_cull`` (default on) drops shadow rays whose light cannot
     contribute whatever the occlusion verdict is (back-facing diffuse
     AND zero specular — shade_pre's per-light contribution mask): the
     verdict of such a ray is multiplied by exactly-zero terms in
     shade_post, so removing it from the intersect batch is
-    output-exact while the packet kernel's interval/per-ray culls
-    prune the dropped rays' chunk work.
+    output-exact while the cull prunes the dropped rays' chunk work.
 
     ``retile`` (live-tile compaction between bounces): after each
     bounce's liveness update, whole ray tiles are permuted so tiles
     with a live ray pack to the FRONT (a stable [T]-element argsort —
-    spatial order among live tiles is preserved).  Secondary bounces
-    leave live rays scattered thinly across the grid (1080p live
-    counts 2.07M / 663K / 18K / 2.4K; live tiles ~15% while live
-    32-tile GROUPS are ~50% — PERF.md round 3), which defeats the
-    kernels' group-granular skipping; after compaction the dead tiles
-    are one contiguous tail, so the intersect/refine/shade kernels'
-    existing liveness gates skip them wholesale.  Tile membership is
-    unchanged (whole tiles move), so every per-tile cull set is
-    IDENTICAL and eager outputs are bit-exact vs retile=False; under
-    jit the permutation shifts XLA fusion boundaries -> ~1-ULP drift,
-    same class as the refine knob.  Color contributions are gathered
-    back through the composed tile permutation at accumulation.
-    Incompatible with ``fuse_bounce`` (the fused kernel spans the
-    compaction point).
+    spatial order among live tiles is preserved), leaving the dead
+    tiles as one contiguous tail.  Tile membership is unchanged (whole
+    tiles move), so every per-tile cull set is IDENTICAL and outputs
+    match retile=False up to XLA fusion (~1 ULP).  Color contributions
+    are gathered back through the composed tile permutation.
 
     ``narrow`` (lane count, e.g. 128): secondary/shadow intersect
-    calls run on laneways-SPLIT ray tiles — [.., T, r] reshaped to
-    [.., T*m, narrow] (free: ray order is row-major preserved, tile t
+    calls run on split ray tiles — [.., T, r] reshaped to
+    [.., T*m, narrow] (ray order is row-major preserved, tile t
     becomes m consecutive sub-tiles), so divergent batches cull over
-    narrower ray unions at less per-entry lattice math; outputs
-    reshape back exactly.  Per-ray math is unchanged, so results are
-    bit-identical modulo XLA fusion (same class as ``refine``).
-    Primaries are never split (coherent tiles double their entry
-    lists — the global ray_tile=128 A/B lost at every size, PERF.md
-    round 4)."""
-    from rt_rs_tpu.ops.pallas.shade_tile import (
-        SUBGROUP,
-        shade_bounce,
-        shade_post,
-        shade_pre,
-    )
+    narrower ray unions; outputs reshape back exactly.  Primaries are
+    never split."""
+    from rt_rs_tpu.ops.shade_tile import shade_post, shade_pre
 
     if not scene.no_negative_materials:
         # Must survive python -O: shade_post's pid != 0 shadow test
@@ -635,10 +598,8 @@ def trace_tiled(
             "XLA trace() path for scenes with negative materials"
         )
     t_tiles, r = valid.shape
-    num_lights = scene.num_lights
-    use_headlight = cfg.camera_light_source > 0.0
     light_rows = []
-    if use_headlight:
+    if cfg.camera_light_source > 0.0:
         light_rows.append(
             jnp.concatenate(
                 [
@@ -647,7 +608,7 @@ def trace_tiled(
                 ]
             )
         )
-    for j in range(num_lights):
+    for j in range(scene.num_lights):
         light_rows.append(
             jnp.concatenate(
                 [
@@ -663,17 +624,11 @@ def trace_tiled(
         # (ambience is dead config, exactly like the reference shader).
         return color
     lights = jnp.stack(light_rows)  # [k, 4]
-
-    active = valid
     table = scene.shade_table
-    emit = intersect_rows_fn is not None
 
     def narrowed(fn):
-        """Laneways tile split for one intersect call (``narrow``):
-        inputs [.., T', r] -> [.., T'*m, narrow], outputs reshaped
-        back.  Pure reshapes — ray order is preserved row-major, so
-        the inverse is exact; only the per-tile cull sets change
-        (conservatively, per sub-tile)."""
+        """Tile split for one intersect call (``narrow``): inputs
+        [.., T', r] -> [.., T'*m, narrow], outputs reshaped back."""
         if fn is None or narrow is None or r <= narrow:
             return fn
         if r % narrow:
@@ -701,35 +656,23 @@ def trace_tiled(
         fn2.supports_refine = getattr(fn, "supports_refine", False)
         return fn2
 
-    def _refine_kw(fn):
+    def secondary(fn, *args, **kw):
         # Secondary/shadow batches opt into the per-ray cull refinement
         # when the backend supports it: reflected directions diverge
-        # within a tile, collapsing the interval cull (bounce
-        # intersects measured ~2.5 ms each with <5% live rays —
-        # PERF.md round 3).  Primaries stay on the cheaper interval
-        # cull (coherent rays; refinement buys nothing there).
-        return (
-            {"refine": True}
-            if getattr(fn, "supports_refine", False)
-            else {}
-        )
+        # within a tile, collapsing the interval cull.  Primaries stay
+        # on the cheaper interval cull (coherent rays).
+        if getattr(fn, "supports_refine", False):
+            kw["refine"] = True
+        return fn(*args, **kw)
 
-    def liveness(t, pid, active, rows_k, pay, o2c):
-        """Per-bounce hit rows + validity update + (with ``retile``)
-        live-tile compaction — shared by all bounces.  With emit, rows
-        came from the kernel's attribute pass — for rays dead since an
-        earlier bounce they hold the actual hit's row (not row 0);
-        every consumer masks by ``active``, so the difference is
-        unobservable.  Without, ONE row gather per bounce (its
-        transpose into component-major fuses in for free — measured,
-        PERF.md).  Under retile the permutation is applied BEFORE the
-        row gather so only the 11 per-ray state components move
-        tile-wise; validity via ``pid != 0`` is exactly the
-        ``rows[25] != -1`` test (no_negative_materials is required
-        above: only the null sentinel row 0 has material -1)."""
+    def liveness(t, pid, active, pay, o2c):
+        """Per-bounce validity update, optional live-tile compaction
+        (``retile``) and the hit rows.  Under retile the permutation is
+        applied BEFORE the row gather.  Validity via ``pid != 0`` is
+        exactly the ``rows[25] != -1`` test (no_negative_materials is
+        required above: only the null sentinel row 0 has material -1)."""
         pid = jnp.where(active, pid, 0)
-        valid_b = (pid != 0) & (t < cfg.t_max) & (t > cfg.t_min)
-        active = active & valid_b
+        active = active & (pid != 0) & (t < cfg.t_max) & (t > cfg.t_min)
         if retile:
             perm = jnp.argsort(
                 ~jnp.any(active, axis=1), stable=True
@@ -740,187 +683,85 @@ def trace_tiled(
             pid = jnp.take(pid, perm, axis=0)
             active = jnp.take(active, perm, axis=0)
             pay = jnp.take(pay, perm, axis=1)
-            if emit:
-                rows = jnp.take(rows_k, perm, axis=1)
-            else:
-                rows = table[pid.reshape(-1)].T.reshape(32, t_tiles, r)
-        else:
-            rows = (
-                rows_k
-                if emit
-                else table[pid.reshape(-1)].T.reshape(32, t_tiles, r)
-            )
-        live_sg = (
-            active.reshape(t_tiles // SUBGROUP, SUBGROUP * r)
-            .any(axis=1)
-            .astype(jnp.int32)
-        )
-        return t, pid, rows, active, live_sg, pay, o2c
+        with jax.named_scope("shade"):
+            rows = table[pid.reshape(-1)].T.reshape(32, t_tiles, r)
+        return t, pid, rows, active, pay, o2c
 
     def add_color(color, contrib, o2c):
         """Accumulate a bounce's contribution (in that bounce's tile
         order) into the original-order image: a bijective tile
-        permutation maps every tile somewhere, so one [T]-index
-        gather restores original order (dead tiles contribute zeros
-        from wherever they landed)."""
+        permutation maps every tile somewhere, so one [T]-index gather
+        restores original order."""
         if o2c is None:
             return color + contrib
         return color + jnp.take(contrib, o2c, axis=1)
 
-    if retile and fuse_bounce:
-        raise ValueError(
-            "retile is incompatible with fuse_bounce (the fused kernel "
-            "spans the compaction point)"
-        )
-
-    # Secondary/shadow calls optionally run on laneways-split tiles;
-    # the primary call below never does (see the narrow doc above).
-    n_intersect_fn = narrowed(intersect_fn)
-    n_rows_fn = narrowed(intersect_rows_fn)
-    n_anyhit_fn = narrowed(intersect_anyhit_fn)
-
-    o2c = None
-    rows_k = None
-    if emit:
-        t, pid, rows_k = intersect_rows_fn(payload, valid)
-    else:
-        t, pid = intersect_fn(payload, valid)
-    t, pid, rows, active, live_sg, payload, o2c = liveness(
-        t, pid, active, rows_k, payload, o2c
-    )
-
     def shadow_valids(active, cmasks):
-        """Per-light shadow-ray validity: live AND the light can
-        contribute (zero-contribution cull — shade_pre's mask is 0
-        where BOTH shading terms are zero whatever the shadow verdict,
-        so dropping the ray from the intersect batch is exact; the
-        kernel's prelude/refine then prune those rays' chunks and
-        fully-culled tiles are skipped)."""
         if not shadow_cull:
             return [active] * k
         return [active & (m > 0.0) for m in cmasks]
 
-    # Bounce 0's shadow/reflection payloads (standalone pre; every
-    # later pre fuses into the previous bounce's post when
-    # fuse_bounce).
+    n_intersect_fn = narrowed(intersect_fn)
+    n_anyhit_fn = narrowed(intersect_anyhit_fn)
+
+    t, pid = intersect_fn(payload, valid)
+    t, pid, rows, active, payload, o2c = liveness(
+        t, pid, valid, payload, None
+    )
     sh_pays, caps, cmasks, nxt = shade_pre(
-        rows, payload, t, pid.astype(jnp.float32), live_sg, lights,
-        emit_next=cfg.bounces > 1, interpret=interpret,
+        rows, payload, t, pid.astype(jnp.float32), lights,
+        emit_next=cfg.bounces > 1,
     )
 
     for bounce in range(cfg.bounces):
         last = bounce + 1 >= cfg.bounces
-
-        if emit:
-            # Shadow rays need no rows: lean call — any-hit when the
-            # backend offers it (exactly equivalent; the occlusion
-            # bound rides payload row 7), else closest-hit.  The next
-            # bounce's closest hit is its own row-emitting call.
-            sh_pay = jnp.concatenate(list(sh_pays), axis=1)
-            sh_valid = jnp.concatenate(shadow_valids(active, cmasks))
-            sh_caps = jnp.concatenate(list(caps))
-            if intersect_anyhit_fn is not None:
-                blocked = n_anyhit_fn(
-                    sh_pay, sh_valid, t_cap=sh_caps,
-                    **_refine_kw(n_anyhit_fn),
-                )
-                sh_t = blocked.reshape(k, t_tiles, r).astype(jnp.float32)
-                sh_id = sh_t
-                blocked_mode = True
-            else:
-                st, sid = n_intersect_fn(
-                    sh_pay, sh_valid, t_cap=sh_caps,
-                    **_refine_kw(n_intersect_fn),
-                )
-                sh_t = st.reshape(k, t_tiles, r)
-                sh_id = sid.reshape(k, t_tiles, r)
-                blocked_mode = False
+        sh_valids = shadow_valids(active, cmasks)
+        if intersect_anyhit_fn is not None:
+            blocked = secondary(
+                n_anyhit_fn,
+                jnp.concatenate(sh_pays, axis=1),
+                jnp.concatenate(sh_valids),
+                t_cap=jnp.concatenate(caps),
+            )
+            sh_t = blocked.reshape(k, t_tiles, r).astype(jnp.float32)
+            sh_id = sh_t
             if not last:
-                t2, pid2, rows2_k = n_rows_fn(
-                    nxt, active, **_refine_kw(n_rows_fn)
-                )
+                t2, pid2 = secondary(n_intersect_fn, nxt, active)
         else:
-            pay_cat = jnp.concatenate(
-                list(sh_pays) + ([nxt] if not last else []), axis=1
-            )
-            valid_cat = jnp.concatenate(
-                shadow_valids(active, cmasks)
-                + ([] if last else [active])
-            )
-            caps_cat = jnp.concatenate(
-                list(caps)
-                + (
-                    [jnp.full((t_tiles, r), cfg.t_max, jnp.float32)]
-                    if not last
-                    else []
-                )
-            )
-            st, sid = n_intersect_fn(
-                pay_cat, valid_cat, t_cap=caps_cat,
-                **_refine_kw(n_intersect_fn),
+            tail_cap = [jnp.full((t_tiles, r), cfg.t_max, jnp.float32)]
+            st, sid = secondary(
+                n_intersect_fn,
+                jnp.concatenate(sh_pays + ([] if last else [nxt]), axis=1),
+                jnp.concatenate(sh_valids + ([] if last else [active])),
+                t_cap=jnp.concatenate(caps + ([] if last else tail_cap)),
             )
             sh_t = st[: k * t_tiles].reshape(k, t_tiles, r)
             sh_id = sid[: k * t_tiles].reshape(k, t_tiles, r)
-            blocked_mode = False
             if not last:
-                t2 = st[k * t_tiles :]
-                pid2 = sid[k * t_tiles :]
-                rows2_k = None
+                t2, pid2 = st[k * t_tiles :], sid[k * t_tiles :]
 
-        caps_st = jnp.stack(list(caps))
-        if last:
-            color = add_color(
-                color,
-                shade_post(
-                    rows, payload, t, active.astype(jnp.float32),
-                    sh_t, sh_id.astype(jnp.float32), caps_st,
-                    live_sg, lights,
-                    first_bounce=bounce == 0,
-                    t_min=cfg.t_min, t_max=cfg.t_max, interpret=interpret,
-                    blocked_mode=blocked_mode,
-                ),
-                o2c,
-            )
-            break
-        # liveness may retile (permute live tiles to the front) the
-        # NEXT bounce's state; this bounce's shade_post below still
-        # runs in the CURRENT order (o2c), the new order (o2c2) takes
-        # over at the shift.
-        t2, pid2, rows2, active2, live_sg2, nxt_p, o2c2 = liveness(
-            t2, pid2, active, rows2_k, nxt, o2c
-        )
-        emit_next2 = bounce + 2 < cfg.bounces
-        if fuse_bounce:
-            contrib, sh_pays, caps, cmasks, nxt2 = shade_bounce(
-                rows, payload, t, active.astype(jnp.float32),
-                sh_t, sh_id.astype(jnp.float32), caps_st,
-                rows2, nxt_p, t2, pid2.astype(jnp.float32),
-                jnp.stack([live_sg, live_sg2]), lights,
+        color = add_color(
+            color,
+            shade_post(
+                rows, payload, t, active,
+                sh_t, sh_id.astype(jnp.float32), jnp.stack(caps), lights,
                 first_bounce=bounce == 0,
                 t_min=cfg.t_min, t_max=cfg.t_max,
-                emit_next=emit_next2, interpret=interpret,
-                blocked_mode=blocked_mode,
-            )
-            color = color + contrib
-        else:
-            color = add_color(
-                color,
-                shade_post(
-                    rows, payload, t, active.astype(jnp.float32),
-                    sh_t, sh_id.astype(jnp.float32), caps_st,
-                    live_sg, lights,
-                    first_bounce=bounce == 0,
-                    t_min=cfg.t_min, t_max=cfg.t_max, interpret=interpret,
-                    blocked_mode=blocked_mode,
-                ),
-                o2c,
-            )
-            sh_pays, caps, cmasks, nxt2 = shade_pre(
-                rows2, nxt_p, t2, pid2.astype(jnp.float32), live_sg2,
-                lights, emit_next=emit_next2, interpret=interpret,
-            )
-        rows, payload, t, pid = rows2, nxt_p, t2, pid2
-        active, live_sg, nxt, o2c = active2, live_sg2, nxt2, o2c2
+                blocked_mode=intersect_anyhit_fn is not None,
+            ),
+            o2c,
+        )
+        if last:
+            break
+        # liveness may retile the NEXT bounce's state; this bounce's
+        # shade_post above ran in the CURRENT order (o2c).
+        t, pid, rows, active, payload, o2c = liveness(
+            t2, pid2, active, nxt, o2c
+        )
+        sh_pays, caps, cmasks, nxt = shade_pre(
+            rows, payload, t, pid.astype(jnp.float32), lights,
+            emit_next=bounce + 2 < cfg.bounces,
+        )
 
     return color
 
@@ -935,26 +776,21 @@ def render_tiled(
     height: int,
     ray_tile: int,
     block: tuple[int, int] | None = None,
-    interpret: bool = False,
-    intersect_rows_fn: TiledIntersectFn | None = None,
     intersect_anyhit_fn: TiledIntersectFn | None = None,
-    fuse_bounce: bool = False,
     shadow_cull: bool = True,
     retile: bool = False,
     narrow: int | None = None,
 ) -> jax.Array:
     """Full frame via the tiled path -> color [H, W, 3] float32.
 
-    Output matches :func:`render` to ~1 ULP (Mosaic FMA contraction)."""
+    Output matches :func:`render` to ~1 ULP (FMA contraction)."""
     payload, valid, n_pixels = camera_ray_tiles(
         camera_pos, camera_at, width, height, ray_tile, block=block
     )
     color = trace_tiled(
         scene, intersect_fn, cfg, payload, valid, camera_pos,
-        interpret=interpret, intersect_rows_fn=intersect_rows_fn,
         intersect_anyhit_fn=intersect_anyhit_fn,
-        fuse_bounce=fuse_bounce, shadow_cull=shadow_cull, retile=retile,
-        narrow=narrow,
+        shadow_cull=shadow_cull, retile=retile, narrow=narrow,
     )
     flat = color.reshape(3, -1)[:, :n_pixels].T  # [n_pixels, 3]
     if block is not None:

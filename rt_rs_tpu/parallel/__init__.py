@@ -1,29 +1,27 @@
-"""Multi-chip scaling: image bands x scene shards over a device mesh.
+"""Multi-device scaling: image bands x scene shards over a device mesh.
 
 The reference is strictly single-GPU — its only parallelism is the 2-D
 compute dispatch grid (``src/lib/state/mod.rs:704-708``; SURVEY.md §2).
-The TPU-native scaling story replaces that with SPMD over a
-``jax.sharding.Mesh`` with up to two axes:
+Here SPMD runs over a ``jax.sharding.Mesh`` with up to two axes:
 
 * the **ray/image axis** (``"rays"``) is the data-parallel axis: each
   device row renders a horizontal band of the frame (camera rays are
-  generated per band, so no ray data ever moves between chips);
+  generated per band, so no ray data ever moves between devices);
 * the **scene axis** (``"scene"``, optional) is the tensor-parallel
   analogue: the flat triangle-chunk table splits evenly across it, each
   device intersects its band's rays against only its shard, and the
-  per-call merge is a handful of XLA collectives riding ICI —
-  ``pmin`` on t (+ a lexicographic prim-id tie-break reproducing the
-  sequential first-strictly-smaller semantics), ``pmax``-select for
-  kernel-emitted rows, ``psum`` for any-hit occlusion.  Scene arrays
-  for SHADING still replicate (KBs); only the intersection working set
-  shards, which divides per-device VMEM pressure and kernel work for
-  beyond-VMEM scenes;
-* the remaining per-frame collective is an optional ``psum`` of
-  luminance statistics (exposure metering) — pure ICI, no DCN.
+  per-call merge is a handful of collectives — ``pmin`` on t (+ a
+  lexicographic prim-id tie-break reproducing the sequential
+  first-strictly-smaller semantics) and ``psum`` for any-hit
+  occlusion.  Scene arrays for SHADING replicate (KBs); only the
+  intersection working set shards;
+* the remaining per-frame collective is an optional ``pmean`` of
+  luminance statistics (exposure metering).
 
-Works on any mesh whose rays axis divides the image height; tested on
-the 8-device virtual CPU mesh in both 1-D and 2-D shapes
-(``tests/test_parallel.py``) and dry-run by the driver via
+The mesh follows the algorithm alone: on cards joined all to all
+(NVLink) no device order is assumed.  Works on any mesh whose rays axis
+divides the image height; tested on the 8-device virtual CPU mesh in
+both 1-D and 2-D shapes (``tests/test_parallel.py``) and rehearsed by
 ``__graft_entry__.dryrun_multichip``.
 """
 
@@ -57,11 +55,8 @@ def image_mesh(n_devices: int | None = None) -> Mesh:
 
 
 def hybrid_mesh(n_bands: int, n_shards: int) -> Mesh:
-    """A 2-D (image bands x scene shards) mesh.
-
-    The rays axis should ride the slower/outer interconnect dimension
-    and the scene axis the faster one (its collectives run per
-    intersect call; band outputs never move)."""
+    """A 2-D (image bands x scene shards) mesh over the first
+    ``n_bands * n_shards`` devices."""
     devices = jax.devices()[: n_bands * n_shards]
     if len(devices) < n_bands * n_shards:
         raise ValueError(
@@ -78,49 +73,30 @@ def _make_scene_parallel_fns(
     cfg: ComputeConfig,
     tris_per_shard: int,
     *,
-    interpret: bool,
     refine_mode: str,
-    chain: bool,
     cull_block: int | None,
-    want_rows: bool,
+    loop: str,
 ):
     """Per-shard intersect fns + cross-shard merges (shard_map body).
 
     ``local`` is this device's slice of the flat chunk table with
     LOCAL prim ids (1..tris_per_shard).  The global id base is traced
     (``axis_index * tris_per_shard``): exclusion ids shift into local
-    space before the kernel, hit ids shift back out after — the kernels
-    themselves are unchanged.  Merge semantics match
-    :func:`packet_closest_hit_segmented_tiled` exactly: min-t wins,
-    ties keep the smallest global prim id (= the earlier shard/prim,
-    the naive loop's first-strictly-smaller rule); any-hit ORs; rows
-    are selected from the winning shard (``pmax`` against -inf — exact
-    incl. -0.0 — then zeroed for misses, matching the kernel's
-    miss-rows contract)."""
+    space before the tracer, hit ids shift back out after.  Merge: min-t
+    wins, ties keep the smallest global prim id (= the earlier
+    shard/prim, the naive loop's first-strictly-smaller rule); any-hit
+    ORs."""
     from rt_rs_tpu.ops.pallas.packet_trace import (
-        packet_closest_hit_segmented_tiled,
         packet_closest_hit_tiled,
-        resident_fits,
-        split_chunks_traced,
         tag_refine,
     )
 
     kwargs: dict[str, Any] = dict(
-        t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, interpret=interpret
+        t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, loop=loop
     )
     if cull_block is not None:
         kwargs["cull_block"] = cull_block
-    has_attr = local.attr_t is not None
-    if resident_fits(local, with_attrs=has_attr and want_rows):
-        base = partial(packet_closest_hit_tiled, local, **kwargs)
-    else:
-        seg_local = split_chunks_traced(local)
-        base = partial(
-            packet_closest_hit_segmented_tiled,
-            seg_local,
-            chain=chain,
-            **kwargs,
-        )
+    base = partial(packet_closest_hit_tiled, local, **kwargs)
 
     def shard_base_i32():
         return jax.lax.axis_index(SCENE_AXIS).astype(jnp.int32) * jnp.int32(
@@ -128,60 +104,32 @@ def _make_scene_parallel_fns(
         )
 
     def shift_payload(payload):
-        # Exclusion ids (payload row 6) are global; the local kernel
+        # Exclusion ids (payload row 6) are global; the local tracer
         # compares against local ids.  Ids are exact integers in f32
         # (< 2^24, guarded by the caller), so the shift is exact; ids
         # belonging to other shards land out of local range and match
         # nothing (exactly right).
         return payload.at[6].add(-shard_base_i32().astype(jnp.float32))
 
-    def merge_closest(t, pid):
+    def closest(payload, valid, t_cap=None, refine=False):
+        t, pid = base(shift_payload(payload), valid, t_cap, refine=refine)
         pid_g = jnp.where(pid > 0, pid + shard_base_i32(), 0)
         t_g = jax.lax.pmin(t, SCENE_AXIS)
         big = jnp.int32(np.iinfo(np.int32).max)
         cand = jnp.where((t == t_g) & (pid_g > 0), pid_g, big)
         pid_w = jax.lax.pmin(cand, SCENE_AXIS)
-        pid_out = jnp.where(pid_w == big, 0, pid_w)
-        return t_g, pid_out, pid_g
-
-    def _tag(fn):
-        return tag_refine(fn, refine_mode)
-
-    def closest(payload, valid, t_cap=None, refine=False):
-        t, pid = base(shift_payload(payload), valid, t_cap, refine=refine)
-        t_g, pid_out, _ = merge_closest(t, pid)
-        return t_g, pid_out
+        return t_g, jnp.where(pid_w == big, 0, pid_w)
 
     def anyhit(payload, valid, t_cap=None, refine=False):
         b = base(
             shift_payload(payload), valid, t_cap, any_hit=True, refine=refine
         )
-        # Kernel outputs are unspecified for invalid rays — mask before
-        # the cross-shard OR.
+        # Outputs are unspecified for invalid rays — mask before the
+        # cross-shard OR.
         b = b & valid
         return jax.lax.psum(b.astype(jnp.int32), SCENE_AXIS) > 0
 
-    rows = None
-    if want_rows and has_attr:
-
-        def rows(payload, valid, t_cap=None, refine=False):
-            t, pid, rws = base(
-                shift_payload(payload), valid, t_cap,
-                emit_rows=True, refine=refine,
-            )
-            t_g, pid_out, pid_g = merge_closest(t, pid)
-            win = (t == t_g) & (pid_g == pid_out) & (pid_out > 0)
-            merged = jax.lax.pmax(
-                jnp.where(win[None], rws, -jnp.inf), SCENE_AXIS
-            )
-            rows_out = jnp.where(pid_out[None] > 0, merged, 0.0)
-            return t_g, pid_out, rows_out
-
-    return (
-        _tag(closest),
-        None if rows is None else _tag(rows),
-        _tag(anyhit),
-    )
+    return tag_refine(closest, refine_mode), tag_refine(anyhit, refine_mode)
 
 
 def make_sharded_render(
@@ -194,21 +142,17 @@ def make_sharded_render(
     mesh: Mesh,
     with_metering: bool = True,
     resolution=None,
-    force_rows: bool | None = None,
 ):
-    """Build a jitted multi-chip render step.
+    """Build a jitted multi-device render step.
 
     Returns ``fn(camera_pos, camera_at) -> (frame [H, W, 3],
     mean_luminance [])`` with the frame sharded over image bands on
-    ``mesh`` and the luminance psum-reduced across devices.
+    ``mesh`` and the luminance pmean-reduced across devices.
 
-    Per band the step takes the SAME fast-path branches as the
-    single-chip ``Renderer._render_jit``: kernel-emitted rows +
-    any-hit shadows per the handler's ``rows_default`` on the band's
-    pixel count (rows for resident tables, gather for segmented;
-    ``force_rows`` overrides).  ``resolution`` (a
-    :class:`rt_rs_tpu.config.Resolution`) supplies the user's ``wg``
-    pixel-block tuning; default wg=16.
+    Per band the step takes the SAME branches as the single-device
+    ``Renderer._render_jit`` (the handler's tiled and any-hit entries).
+    ``resolution`` (a :class:`rt_rs_tpu.config.Resolution`) supplies
+    the user's ``wg`` pixel-block tuning; default wg=16.
 
     A mesh with a ``"scene"`` axis additionally shards the triangle
     chunk table across that axis (see the module docstring); this
@@ -227,21 +171,11 @@ def make_sharded_render(
     rows_per_dev = height // n_dev
     scene_parallel = n_shards > 1
 
-    import jax as _jax
-
     ray_tile = getattr(handler, "block_lanes", 128)
     use_tiled = arrays.no_negative_materials
-    interp = _jax.default_backend() != "tpu"
-    intersect_t = None
-    rows_fn = None
-    anyhit_fn = None
     flat_tbl = None
-    sp_cfg = None
     if scene_parallel:
-        from rt_rs_tpu.ops.pallas.packet_trace import (
-            flatten_segments,
-            resident_fits,
-        )
+        from rt_rs_tpu.ops.pallas.packet_trace import TriChunks, flat_table
 
         if not use_tiled:
             raise ValueError(
@@ -250,58 +184,19 @@ def make_sharded_render(
             )
         # The flat chunk table, padded with never-hit chunks at the
         # tail so every shard gets an equal slice (each a cull_block
-        # multiple — the kernel's only chunk-count divisibility
-        # requirement).
-        cb = getattr(handler, "cull_block", None) or 1
-        flat_tbl = flatten_segments(accel, pad_multiple=n_shards * cb)
+        # multiple — the tracer's only chunk-count requirement).
+        cull_block = getattr(handler, "cull_block", None)
+        flat_tbl = flat_table(accel, pad_multiple=n_shards * (cull_block or 1))
         nc_local = flat_tbl.num_chunks // n_shards
-        tc = int(flat_tbl.comp.shape[1])
-        tris_per_shard = nc_local * tc
+        tris_per_shard = nc_local * flat_tbl.tri_chunk
         if tris_per_shard * n_shards + 1 >= 1 << 24:
             raise ValueError(
                 "prim ids exceed f32 exact-integer range (2^24)"
             )
-        # Same default policy as the single-chip Renderer, applied to
-        # the PER-SHARD table: kernel-emitted rows when the shard is
-        # VMEM-resident with attrs, gather when the shard itself must
-        # run segmented (the measured segmented-rows rejection,
-        # PERF.md round 3).  force_rows overrides either way.
-        local_view = dataclasses.replace(flat_tbl, num_chunks=nc_local)
-        use_rows = (
-            (
-                flat_tbl.attr_t is not None
-                and resident_fits(local_view, with_attrs=True)
-            )
-            if force_rows is None
-            else force_rows
-        )
-        sp_cfg = dict(
-            nc_local=nc_local,
-            tris_per_shard=tris_per_shard,
-            refine_mode=getattr(handler, "refine", "off"),
-            chain=getattr(handler, "chain", True),
-            cull_block=getattr(handler, "cull_block", None),
-            want_rows=use_rows,
-        )
+        refine_mode = getattr(handler, "refine", "off")
     elif use_tiled:
-        # Tiled frame path per band: the same fused-Pallas fast path as
-        # the single-chip Renderer (shading/intersect are elementwise
-        # per band, so the sharding story is unchanged: scene + accel
-        # replicate, rays are the data-parallel axis).
         intersect_t = handler.intersect_tiled_fn(accel, arrays, cfg)
-        # Fast-path parity with _render_jit: the heuristic applies to
-        # the PER-BAND pixel count (that is what each chip renders).
-        use_rows = (
-            handler.rows_default(accel, width * rows_per_dev)
-            if force_rows is None
-            else force_rows
-        )
-        if use_rows:
-            rows_fn = handler.intersect_tiled_rows_fn(accel, arrays, cfg)
-            if rows_fn is not None:
-                anyhit_fn = handler.intersect_tiled_anyhit_fn(
-                    accel, arrays, cfg
-                )
+        anyhit_t = handler.intersect_tiled_anyhit_fn(accel, arrays, cfg)
     else:
         intersect = handler.intersect_fn(accel, arrays, cfg)
 
@@ -316,34 +211,24 @@ def make_sharded_render(
         # row0: [1] per-device band start (sharded scalar).
         if use_tiled:
             if scene_parallel:
-                # tbl_args[0] is this device's chunk-table slice (the
-                # leading chunk axis was split by P(SCENE_AXIS)); its
+                # tbl_args[0] is this device's chunk-table slice; its
                 # static num_chunks still reads the global count.
                 local = dataclasses.replace(
-                    tbl_args[0], num_chunks=sp_cfg["nc_local"]
+                    tbl_args[0], num_chunks=nc_local
                 )
-                i_fn, r_fn, a_fn = _make_scene_parallel_fns(
-                    local, cfg, sp_cfg["tris_per_shard"],
-                    # Same execution-mode knob the handler-built fns of
-                    # the 1-D path honor (interpret=True on a real TPU
-                    # is a supported debugging mode).
-                    interpret=getattr(handler, "interpret", interp),
-                    refine_mode=sp_cfg["refine_mode"],
-                    chain=sp_cfg["chain"],
-                    cull_block=sp_cfg["cull_block"],
-                    want_rows=sp_cfg["want_rows"],
+                i_fn, a_fn = _make_scene_parallel_fns(
+                    local, cfg, tris_per_shard,
+                    refine_mode=refine_mode, cull_block=cull_block,
+                    loop=getattr(handler, "loop", "kernel"),
                 )
-                a_fn = a_fn if r_fn is not None else None
             else:
-                i_fn, r_fn, a_fn = intersect_t, rows_fn, anyhit_fn
+                i_fn, a_fn = intersect_t, anyhit_t
             payload, valid, n_pixels = shade.camera_ray_tiles(
                 camera_pos, camera_at, width, height, ray_tile,
                 y_offset=row0[0], rows=rows_per_dev, block=blk,
             )
             color = shade.trace_tiled(
                 arrays, i_fn, cfg, payload, valid, camera_pos,
-                interpret=interp,
-                intersect_rows_fn=r_fn,
                 intersect_anyhit_fn=a_fn,
             )
             flat = color.reshape(3, -1)[:, :n_pixels].T
@@ -356,10 +241,14 @@ def make_sharded_render(
             color = shade.trace(arrays, intersect, cfg, o, d)
             band = shade.unblock_colors(color, width, rows_per_dev, blk)
         if with_metering:
-            # Cross-chip collective (ICI): global mean luminance for
-            # exposure metering.
+            # Cross-device collective: global mean luminance for
+            # exposure metering (full f32: no TF32 rounding on GPUs).
             lum = jnp.mean(
-                band @ jnp.array([0.2126, 0.7152, 0.0722], jnp.float32)
+                jnp.dot(
+                    band,
+                    jnp.array([0.2126, 0.7152, 0.0722], jnp.float32),
+                    precision="highest",
+                )
             )
             lum = jax.lax.pmean(lum, RAY_AXIS)
         else:
@@ -369,10 +258,16 @@ def make_sharded_render(
     in_specs = [P(RAY_AXIS), P(), P()]
     call_extra = ()
     if scene_parallel:
-        # Split the chunk table's leading (chunk) axis across the scene
-        # shards; static metadata (num_chunks) rides along unsplit.
+        # Split the chunk table's chunk axis across the scene shards
+        # (columns of comp, rows of the bounds); static metadata
+        # (num_chunks) rides along unsplit.
         in_specs.append(
-            jax.tree_util.tree_map(lambda _: P(SCENE_AXIS), flat_tbl)
+            TriChunks(
+                comp=P(None, SCENE_AXIS),
+                bmin=P(SCENE_AXIS),
+                bmax=P(SCENE_AXIS),
+                num_chunks=flat_tbl.num_chunks,
+            )
         )
         call_extra = (flat_tbl,)
     sharded = shard_map(

@@ -15,7 +15,7 @@ Parity targets in the reference:
 * ``Scene::add_mesh`` — ``src/lib/scene/mod.rs:274-343``: OBJ import
   with angle-weighted smooth-normal generation.
 
-TPU-first design note: per-primitive corner positions/normals are
+Design note: per-primitive corner positions/normals are
 pre-gathered into contiguous ``[P, 3]`` arrays at pack time, so the hot
 intersection/shading kernels never chase ``prim -> vertex`` indices the
 way the WGSL does (``compute.wgsl:124-126``); they stream contiguous

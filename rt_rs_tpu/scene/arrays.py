@@ -2,14 +2,14 @@
 
 The reference uploads five buffers — camera UBO + prims / vertices /
 lights / materials storage buffers (``src/lib/scene/mod.rs:133-272``).
-The TPU-native layout is a pytree of SoA ``jax.Array``s with two
+The layout here is a pytree of SoA ``jax.Array``s with two
 deliberate differences:
 
 * Per-primitive corner data is pre-gathered: ``pa/pb/pc`` (positions)
   and ``na/nb/nc`` (normals) are contiguous ``[P, 3]`` arrays, so hot
   kernels never perform ``prim -> vertex`` index chasing (the WGSL does
-  this gather per ray per test, ``compute.wgsl:124-126, 144-146``; on
-  TPU we hoist it to pack time since the mesh is static per frame).
+  this gather per ray per test, ``compute.wgsl:124-126, 144-146``;
+  here it is hoisted to pack time since the mesh is static per frame).
 * The null/miss sentinel prim (material ``-1``) occupies row 0, same
   convention as ``scene/mod.rs:161-166``, so "prim id 0" always means
   miss and gathers need no bounds branches.
@@ -93,9 +93,8 @@ class SceneArrays:
     mat_albedo: jax.Array
     mat_spec: jax.Array
     # Combined per-prim shading row [P, 32] float32: everything the
-    # bounce loop needs about a hit prim in ONE gather (measured on
-    # v5e: ten separate [N,3] gathers cost 55 ms at 2M rays; one
-    # [N,32] row gather costs 8 ms).  Layout: pa pb pc na nb nc
+    # bounce loop needs about a hit prim in ONE gather (one [N,32]
+    # row gather instead of ten separate [N,3] ones).  Layout: pa pb pc na nb nc
     # mat_color mat_albedo (3 each) | mat_spec | prim_mat | pad.
     shade_table: jax.Array
     # True if no *real* prim carries material -1 (all bundled scenes):

@@ -1,28 +1,19 @@
-"""Canonical verification scenes shared by the golden gate and tpu_check.
+"""Scene recipes shared by the tests, ``chip_smoke.py`` and ``bench.py``.
 
-The reference ships two JSON scenes (``/root/reference/scenes``); its
-study additionally renders the bundled OBJ meshes
-(``/root/reference/meshes``, pdf §4.1).  These constructors pin the
-exact scene parameters (camera, lights, materials, bounce counts) used
-by both the CPU golden tests (``tests/test_goldens.py``) and the
-on-TPU compiled-kernel gate (``tools/tpu_check.py``) so the two gates
-diff the SAME images.  Every golden is rendered by the naive
-brute-force backend — itself verified against the scalar oracle
-transcription of ``compute.wgsl`` — so agreement here is agreement
-with the reference semantics.
+The benchmark and smoke scenes themselves are generated from a seed in
+:mod:`rt_rs_tpu.scene.procedural`; this module holds the recipes around
+them and the reference-file scenes of the golden tests:
 
-The set deliberately covers the pipeline's special branches:
-
-* ``mesh_scene('cessna')`` — degenerate geometry (130 NaN-normal
-  prims) that forces the non-finite-shade-table rows fallback, plus
-  multiple lights and 4 bounces;
-* ``mesh_scene('shuttle')`` — a second multi-light OBJ mesh;
+* ``tiled_copies`` — a scene's geometry replicated at offsets (the
+  large-scene recipe);
 * ``ghost_scene(-1)`` — a real ``material = -1`` prim, which routes
   the renderer down the XLA ``shade.render`` fallback (the reference's
   miss-sentinel semantics, ``src/lib/scene/mod.rs:161-166`` +
   ``compute.wgsl:185-187``: blocks camera rays, casts no shadow);
-* ``tiled_teapots(3)`` — 18,960 prims, beyond the packet kernel's
-  VMEM-resident cap, so the handler routes to the segmented kernel.
+* ``mesh_scene`` / ``tiled_teapots`` / ``golden_set`` — scenes built
+  from the reference project's own OBJ meshes and scene JSONs (the
+  golden images of ``tests/test_goldens.py``); they need a checkout of
+  the reference and are used only by ``reference``-marked tests.
 """
 
 from __future__ import annotations
@@ -31,9 +22,6 @@ import numpy as np
 
 from rt_rs_tpu.scene import Scene
 from rt_rs_tpu.scene.camera import CameraController, CameraUniform
-
-MESHES = "/root/reference/meshes"
-SCENES = "/root/reference/scenes"
 
 # mesh -> (camera position, bounces); the camera frames the whole
 # model (the matrix test asserts a non-black naive render).
@@ -47,7 +35,7 @@ MESH_VIEWS = {
 
 def mesh_scene(
     name: str,
-    meshes_dir: str = MESHES,
+    meshes_dir: str,
     lights: bool = True,
 ) -> tuple[Scene, int]:
     """A bundled OBJ mesh under two lights -> (scene, bounces)."""
@@ -112,7 +100,7 @@ def ghost_scene(ghost_material: int) -> Scene:
 
 def tiled_copies(base: Scene, offsets) -> Scene:
     """``base``'s geometry replicated at ``offsets`` (camera, lights
-    and materials carried over) — the beyond-VMEM scene recipe."""
+    and materials carried over) — the large-scene recipe."""
     big = Scene.empty()
     big.camera = base.camera
     big.camera_controller = base.camera_controller
@@ -135,10 +123,8 @@ def tiled_copies(base: Scene, offsets) -> Scene:
     return big
 
 
-def tiled_teapots(n: int = 3, scenes_dir: str = SCENES) -> Scene:
-    """``n`` teatime teapots in a row: n=3 -> 18,960 prims, past the
-    packet kernel's 12,288-triangle VMEM-resident cap, so pbvh routes
-    to the segmented streaming kernel."""
+def tiled_teapots(n: int, scenes_dir: str) -> Scene:
+    """``n`` teatime teapots in a row (n=3 -> 18,960 prims)."""
     base = Scene.load(f"{scenes_dir}/teatime.json")
     step = 8.0
     offsets = [
@@ -148,7 +134,7 @@ def tiled_teapots(n: int = 3, scenes_dir: str = SCENES) -> Scene:
 
 
 def golden_set(
-    meshes_dir: str = MESHES, scenes_dir: str = SCENES
+    meshes_dir: str, scenes_dir: str
 ) -> dict[str, tuple[Scene, int]]:
     """name -> (scene, bounces) for every golden beyond the two
     shipped JSON scenes (those load directly from ``scenes_dir``)."""

@@ -1,4 +1,5 @@
-"""Minimal demo — parity with ``src/demo.rs``: the default scene with
+"""Minimal demo — parity with ``src/demo.rs``: a scene (default: the
+generated base scene) with
 the naive handler at 60 fps, Dynamic(16) resolution; renders a few
 orbit frames and writes ``demo.png``."""
 
@@ -14,10 +15,17 @@ from rt_rs_tpu.utils.image import write_png
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="demo", description=__doc__)
-    p.add_argument("--path", default="/root/reference/scenes/default.json")
+    p.add_argument(
+        "--path", default=None,
+        help="scene JSON (default: the generated base scene, seed 0)",
+    )
     p.add_argument("--out", default="demo.png")
     p.add_argument("--frames", type=int, default=3)
     args = p.parse_args(argv)
+    if args.path is None:
+        from rt_rs_tpu.scene.procedural import base_scene_path
+
+        args.path = base_scene_path()
 
     renderer = Renderer(
         Scene.load(args.path),

@@ -7,9 +7,9 @@ Handler flags mirror the reference exactly (load.rs:148-192):
   eps; anything else = path to a precomputed ``*.bvh.json``
 * ``--handler-bvh-rf [EPS]``
 * *no handler flag* = the Blank (no-op) baseline, like the reference
-* ``--handler-pbvh [EPS]`` — TPU-native Pallas packet backend (addition)
+* ``--handler-pbvh [EPS]`` — the packet tracer backend (addition)
 
-Headless additions (no winit window on a TPU host): ``--frames N``
+Headless additions (no winit window on an accelerator host): ``--frames N``
 renders N orbit-stepped frames, ``--out`` writes the last frame as PNG,
 ``--benchmark`` runs the study protocol and writes ``benchmark.png``
 (BenchScheduler parity).
@@ -25,7 +25,10 @@ from rt_rs_tpu.config import ComputeConfig, Config, Resolution
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="load", description=__doc__)
-    p.add_argument("--path", default="scenes/default.json")
+    p.add_argument(
+        "--path", default=None,
+        help="scene JSON (default: the generated base scene, seed 0)",
+    )
     p.add_argument("--handler-naive", action="store_true")
     p.add_argument("--handler-bvh", nargs="*", default=None,
                    metavar="EPS|PATH")
@@ -79,13 +82,6 @@ def build_parser() -> argparse.ArgumentParser:
         help="like --dynamic but refit-only: Morton order frozen at "
         "the rest pose, per-frame bounds recompute (implies --dynamic)",
     )
-    p.add_argument(
-        "--seg-order", choices=("auto", "scene"), default="auto",
-        help="segment visit order for beyond-VMEM scenes: 'auto' "
-        "(default) = camera front-to-back per frame (output-exact; "
-        "-6%% on the 50K canyon orbit, PERF.md round 5), 'scene' = "
-        "build order",
-    )
     return p
 
 
@@ -134,8 +130,8 @@ def make_dynamic(args, config):
 
 
 def dynamic_wobble(scene):
-    """1%-amplitude breathing of the rest pose — the measured dynamic
-    benchmark deformation (experiments/dynamic_1080.py, PERF.md)."""
+    """1%-amplitude breathing of the rest pose (the dynamic benchmark
+    deformation)."""
     import math
 
     import numpy as np
@@ -149,7 +145,7 @@ def dynamic_wobble(scene):
 
 
 def run_sharded(args, config, handler_name: str, handler_kwargs: dict) -> int:
-    """--bands/--shards: multi-chip rendering over a device mesh
+    """--bands/--shards: multi-device rendering over a device mesh
     (parallel.make_sharded_render; bands = data-parallel image rows,
     shards = scene-parallel chunk-table slices)."""
     import time
@@ -221,11 +217,17 @@ def main(argv: list[str] | None = None) -> int:
 
     from rt_rs_tpu.renderer import Renderer
     from rt_rs_tpu.scene import Scene
+    from rt_rs_tpu.utils.cache import enable_compile_cache
     from rt_rs_tpu.utils.image import write_png
     from rt_rs_tpu.utils.log import init_logging
 
     init_logging()
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
+    if args.path is None:
+        from rt_rs_tpu.scene.procedural import base_scene_path
+
+        args.path = base_scene_path()
 
     # Resolution forms (load.rs:117-128).
     if args.width and args.height and args.workgroup_size:
@@ -261,7 +263,7 @@ def main(argv: list[str] | None = None) -> int:
     else:
         renderer = Renderer(
             Scene.load(args.path), config=config, handler=handler,
-            handler_kwargs=kwargs, seg_order=args.seg_order,
+            handler_kwargs=kwargs,
         )
     print(f"handler: {renderer.stats.name} ({renderer.stats.size} B)")
 

@@ -26,7 +26,7 @@ def main(argv: list[str] | None = None) -> int:
         action="store_true",
         help="build on the accelerator (Morton sort + Karras hierarchy "
         "emit + parallel refit; one prim per leaf — --eps/--item-count "
-        "do not apply). TPU-native addition; the checkpoint format is "
+        "do not apply). An addition; the checkpoint format is "
         "identical.",
     )
     args = p.parse_args(argv)

@@ -4,9 +4,10 @@ The reference ships a WASM build driven by a JS shell
 (``src/lib/web.rs``, ``js/index.js``): the canvas renders in-browser
 and the page pushes config / scene / viewport updates into static
 mailboxes that the event loop applies between frames
-(web.rs:38-59, 115-148).  A TPU renderer cannot run in the browser, so
+(web.rs:38-59, 115-148).  A JAX renderer cannot run in the browser, so
 the equivalent is a small HTTP server: the browser polls ``/frame.png``
-while POSTing the same three update kinds; frames render on the TPU.
+while POSTing the same three update kinds; frames render on the
+server's accelerator, one JAX process per card.
 
 Behavior parity that carries over:
 
@@ -24,7 +25,6 @@ import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from io import BytesIO
 from pathlib import Path
 
 import numpy as np
@@ -237,11 +237,9 @@ class WebState:
             self.frame_ms = (time.perf_counter() - t0) * 1e3
             self.scheduler.frame_done()
 
-            from PIL import Image
+            from rt_rs_tpu.utils.image import encode_png
 
-            buf = BytesIO()
-            Image.fromarray(image, mode="RGB").save(buf, format="PNG")
-            self._cached_png = buf.getvalue()
+            self._cached_png = encode_png(image)
             return self._cached_png
 
     def status(self) -> dict:

@@ -1,4 +1,4 @@
-"""``python -m rt_rs_tpu.web --path scenes/default.json``
+"""``python -m rt_rs_tpu.web [--path scene.json]``
 
 ``--unloaded --scene-dir DIR`` starts without a scene (the reference
 wasm app's ``Scene::Unloaded`` start state): a black placeholder frame
@@ -12,7 +12,10 @@ from rt_rs_tpu.web import serve
 
 def main() -> int:
     p = argparse.ArgumentParser(prog="rt_rs_tpu.web")
-    p.add_argument("--path", default="/root/reference/scenes/default.json")
+    p.add_argument(
+        "--path", default=None,
+        help="scene JSON (default: the generated base scene, seed 0)",
+    )
     p.add_argument(
         "--unloaded", action="store_true",
         help="start with no scene loaded (pick one in the browser)",
@@ -27,6 +30,13 @@ def main() -> int:
     p.add_argument("--width", type=int, default=320)
     p.add_argument("--height", type=int, default=240)
     args = p.parse_args()
+    if args.path is None:
+        from rt_rs_tpu.scene.procedural import base_scene_path
+
+        args.path = base_scene_path()
+    from rt_rs_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     scene_dir = args.scene_dir
     if args.unloaded and scene_dir is None:
         import os

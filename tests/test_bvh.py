@@ -15,21 +15,30 @@ from rt_rs_tpu.scene import Scene
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(small_scene):
+    """The generated 50-triangle scene."""
+    return small_scene
 
 
 @pytest.fixture(scope="module")
-def teatime_scene(scenes_dir):
+def teatime_scene(base_scene):
+    """The generated study-scale scene (6,320 triangles)."""
+    return base_scene
+
+
+@pytest.fixture(scope="module")
+def reference_teatime(scenes_dir):
+    """The reference's own teatime.json (``reference`` tests only)."""
     return Scene.load(str(scenes_dir / "teatime.json"))
 
 
-def test_teatime_checkpoint_bit_exact(teatime_scene, scenes_dir):
+@pytest.mark.reference
+def test_teatime_checkpoint_bit_exact(reference_teatime, scenes_dir):
     """Building teatime.json with eps=1.95/target=2 must reproduce the
     shipped teatime.bvh.json bit-for-bit (validates the f32 split
     semantics of aabb.rs:149-248 + flatten order of bvh/mod.rs:29-64)."""
     ref = BvhData.load(str(scenes_dir / "teatime.bvh.json"))
-    ours = build_bvh(teatime_scene, eps=1.95, target_item_count=2)
+    ours = build_bvh(reference_teatime, eps=1.95, target_item_count=2)
     assert ours.num_nodes == ref.num_nodes == 4951
     np.testing.assert_array_equal(ours.fst, ref.fst)
     np.testing.assert_array_equal(ours.snd, ref.snd)
@@ -150,36 +159,38 @@ def _compare_intersect(scene, handler_name, rays=256, seed=3, **kwargs):
     assert ((np.asarray(id1) == 0) == (np.asarray(id0) == 0)).all()
 
 
-def test_bvh_matches_naive_default(default_scene):
-    _compare_intersect(default_scene, "bvh")
+@pytest.mark.parametrize("backend", ["threaded", "packet"])
+def test_bvh_matches_naive_default(default_scene, backend):
+    _compare_intersect(default_scene, "bvh", backend=backend)
 
 
 def test_bvh_matches_naive_teatime(teatime_scene):
     _compare_intersect(teatime_scene, "bvh", rays=128, seed=4)
 
 
-def test_bvh_precomputed_checkpoint(teatime_scene, scenes_dir):
+@pytest.mark.reference
+def test_bvh_precomputed_checkpoint(reference_teatime, scenes_dir):
     """Loading the shipped checkpoint must work and agree with naive
     (BvhConfig::Bytes path, bvh.rs:54-64)."""
     _compare_intersect(
-        teatime_scene, "bvh", rays=64, seed=5,
+        reference_teatime, "bvh", rays=64, seed=5,
         path=str(scenes_dir / "teatime.bvh.json"),
     )
 
 
-def test_bvh_render_matches_naive(default_scene):
+def test_bvh_render_matches_naive(teatime_scene):
     cfg = Config(resolution=Resolution.sized(48, 32))
     f_naive = np.asarray(
-        Renderer(default_scene, config=cfg, handler="naive").render_frame()
+        Renderer(teatime_scene, config=cfg, handler="naive").render_frame()
     )
     f_bvh = np.asarray(
-        Renderer(default_scene, config=cfg, handler="bvh").render_frame()
+        Renderer(teatime_scene, config=cfg, handler="bvh").render_frame()
     )
     np.testing.assert_allclose(f_bvh, f_naive, atol=1e-5)
 
 
 def test_bvh_packet_backend_matches_threaded(default_scene):
-    """backend='packet' (the TPU fast path for --handler-bvh) must give
+    """backend='packet' (the packet tracer behind --handler-bvh) must give
     the same closest hits as the threaded walk, ids included (same
     leaf-ordered prim space)."""
     cfg = ComputeConfig()
@@ -235,18 +246,18 @@ def test_handler_instance_reuse_across_scenes(default_scene, teatime_scene):
     np.testing.assert_allclose(np.asarray(t1), np.asarray(tref), rtol=1e-6)
 
 
-def test_bvh_packet_render_matches_naive(default_scene):
+def test_bvh_packet_render_matches_naive(teatime_scene):
     """Full render through the bvh handler's PACKET backend (tiled +
-    per-ray refine tags, the TPU fast path) must match naive — covers
-    the refine-tagged tiled/rows/any-hit entries the AoS test cannot."""
+    per-ray refine tags) must match naive — covers the refine-tagged
+    tiled/any-hit entries the AoS test cannot."""
     cfg = Config(resolution=Resolution.sized(48, 32))
     f_naive = np.asarray(
-        Renderer(default_scene, config=cfg, handler="naive").render_frame()
+        Renderer(teatime_scene, config=cfg, handler="naive").render_frame()
     )
     for refine in ("bounces", "all", "off"):
         f_p = np.asarray(
             Renderer(
-                default_scene, config=cfg, handler="bvh",
+                teatime_scene, config=cfg, handler="bvh",
                 handler_kwargs=dict(backend="packet", refine=refine),
             ).render_frame()
         )

@@ -1,6 +1,6 @@
 """Chained animate (Renderer.animate(chain=K)): K frames per dispatch
-with the orbit advanced in-graph (PERF.md round 4: amortizes the
-per-dispatch host floor; blank 3.2 -> 0.9 ms/frame on TPU).
+with the orbit advanced in-graph (amortizes the per-dispatch host
+cost).
 
 Contract pinned here: frame 0 of a chain matches the unchained render
 (same camera inputs through the same jitted graph); later frames use
@@ -14,7 +14,6 @@ import numpy as np
 
 from rt_rs_tpu.config import Config, Resolution
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
 KW = dict(
     config=Config(resolution=Resolution.sized(32, 24)),
@@ -33,8 +32,8 @@ def _collect(r, frames, chain):
     return got
 
 
-def test_chain_matches_loop(scenes_dir):
-    scene = Scene.load(str(scenes_dir / "default.json"))
+def test_chain_matches_loop(small_scene):
+    scene = small_scene
     loop = _collect(Renderer(scene, **KW), 5, chain=None)
     chained = _collect(Renderer(scene, **KW), 5, chain=2)
     assert sorted(chained) == list(range(5)) == sorted(loop)
@@ -46,8 +45,8 @@ def test_chain_matches_loop(scenes_dir):
         assert np.abs(chained[i] - loop[i]).max() < 1e-3, i
 
 
-def test_chain_host_camera_canonical(scenes_dir):
-    scene = Scene.load(str(scenes_dir / "default.json"))
+def test_chain_host_camera_canonical(small_scene):
+    scene = small_scene
     a = Renderer(scene, **KW)
     b = Renderer(scene, **KW)
     a.animate(5, sync_every=2, chain=None)
@@ -59,7 +58,7 @@ def test_chain_host_camera_canonical(scenes_dir):
 # ----------------------------------------------------------------------
 # DynamicRenderer.animate(chain=K): same contract over per-frame
 # geometry — the host stacks each chain's vertex arrays and one
-# dispatch runs K rebuild+trace steps (VERDICT round-4 item 5).
+# dispatch runs K rebuild+trace steps.
 
 def _wobble(scene, i):
     vp = np.asarray(scene.vert_pos, np.float32).copy()
@@ -90,8 +89,8 @@ def _collect_dynamic(scene, frames, chain):
     return got, calls, dr
 
 
-def test_dynamic_chain_matches_loop(scenes_dir):
-    scene = Scene.load(str(scenes_dir / "default.json"))
+def test_dynamic_chain_matches_loop(small_scene):
+    scene = small_scene
     loop, lcalls, a = _collect_dynamic(scene, 5, chain=None)
     chained, ccalls, b = _collect_dynamic(scene, 5, chain=2)
     assert sorted(chained) == list(range(5)) == sorted(loop)

@@ -9,7 +9,7 @@ with its twin and — because identical corners give a bit-identical
 (``basic.rs:95-104``) — the duplicate is never otherwise observable:
 a duplicated scene renders exactly like its de-duplicated twin.
 
-The TPU-native equivalent is pack-time: ``intersect_indices``
+The equivalent here is pack-time: ``intersect_indices``
 (scene/arrays.py) collapses each later duplicate to a zero-area
 ``(a, a, a)`` triangle so every backend's zero-cost prim-id exclusion
 reproduces the triple semantics exactly.  These tests pin that against
@@ -177,8 +177,8 @@ def test_dynamic_renderer_duplicates(single_image, refit):
     ("naive", {}),
     ("bvh", {}),
     ("rf_bvh", {}),
-    ("pbvh", {"interpret": True}),
-    ("lbvh", {"interpret": True}),
+    ("pbvh", {}),
+    ("lbvh", {}),
 ])
 def test_degenerate_slots_never_hit(handler, kwargs):
     """The pack-time collapse relies on packed ``(a, a, a)`` rows being

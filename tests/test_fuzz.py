@@ -34,8 +34,8 @@ def _random_scene(rng, n_tris, scale=5.0, degenerate_frac=0.0):
 HANDLERS = [
     ("bvh", {}),
     ("rf_bvh", {}),
-    ("pbvh", {"interpret": True}),
-    ("lbvh", {"interpret": True}),
+    ("pbvh", {}),
+    ("lbvh", {}),
 ]
 
 
@@ -105,20 +105,29 @@ def test_degenerate_triangles():
 
 
 def test_vmem_guard():
-    """The VMEM-resident chunk builder still guards its cap; the pbvh
-    handler transparently streams instead (see test_stream.py)."""
-    from rt_rs_tpu.ops.pallas.packet_trace import build_tri_chunks
+    """No on-chip-memory cap is left: a soup past the old 12,288-triangle
+    limit builds ONE flat chunk table and traces like naive."""
+    from rt_rs_tpu.ops.pallas.packet_trace import TriChunks
 
     rng = np.random.default_rng(7)
     scene = _random_scene(rng, 13000)
     arrays = scene.pack()
-    with pytest.raises(ValueError, match="streaming"):
-        build_tri_chunks(arrays.pa, arrays.pb, arrays.pc)
-    # The handler itself succeeds (routes to the segmented
-    # beyond-VMEM path).
-    from rt_rs_tpu.ops.pallas.packet_trace import SegmentedTriChunks
-
-    h = get_handler("pbvh", interpret=True)
-    accel, _ = h.build(scene, arrays)
-    assert isinstance(accel, SegmentedTriChunks)
-    assert len(accel.segments) > 1
+    h = get_handler("pbvh")
+    accel, ha = h.build(scene, arrays)
+    assert isinstance(accel, TriChunks)
+    assert accel.num_chunks * accel.tri_chunk >= 13000
+    cfg = ComputeConfig()
+    o = rng.uniform(-1.0, 1.0, (256, 3)).astype(np.float32)
+    d = rng.normal(size=(256, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    excl = jnp.zeros((256,), jnp.int32)
+    ones = jnp.ones((256,), bool)
+    t1, i1 = h.intersect_fn(accel, ha, cfg)(
+        jnp.asarray(o), jnp.asarray(d), excl, ones
+    )
+    nv = get_handler("naive")
+    _, na = nv.build(scene, scene.pack())
+    t0, _ = nv.intersect_fn(None, na, cfg)(
+        jnp.asarray(o), jnp.asarray(d), excl, ones
+    )
+    np.testing.assert_allclose(np.asarray(t1), np.asarray(t0), rtol=1e-4)

@@ -1,17 +1,15 @@
-"""Golden-image regression gates.
+"""Golden-image regression gates on the reference project's scenes.
 
-The scalar oracle (tests/oracle.py) is the semantic authority but slow;
-these goldens pin the full pipeline's output cheaply.  They were
-rendered with the naive (brute-force) backend — itself oracle-verified
-in test_render.py — on CPU at 64x48 (experiments/make_goldens.py; the
-scene set lives in rt_rs_tpu/scene/presets.py so tools/tpu_check.py
-diffs the SAME images through the compiled kernels on TPU).
+The goldens were rendered with the naive (brute-force) backend —
+itself oracle-verified in test_render.py — on CPU at 64x48 from the
+reference's scene JSONs and OBJ meshes (the scene set lives in
+rt_rs_tpu/scene/presets.py).  They pin those files' bits, so every test
+here is ``reference``-marked and skips without RT_RS_REFERENCE.
 
 Beyond the two shipped JSON scenes the set pins the special branches:
-cessna (NaN-normal degenerate geometry -> rows fallback; multi-light),
-shuttle (second multi-light mesh), ghost (a real material=-1 prim ->
-the XLA shade.render fallback), teapots3 (beyond-VMEM -> the
-segmented streaming kernel).
+cessna (NaN-normal degenerate geometry; multi-light), shuttle (second
+multi-light mesh), ghost (a real material=-1 prim -> the XLA
+shade.render fallback), teapots3 (18,960 prims in one chunk table).
 """
 
 import numpy as np
@@ -48,20 +46,17 @@ def _render(scene, bounces, handler, kwargs):
     return r.render_image()
 
 
-# The full handler matrix (VERDICT round-4 item 7: one uniform golden
-# gate).  rf_bvh runs its threaded (format-faithful) backend on CPU;
-# lbvh builds on device in interpret mode.  Non-applicable cells:
-# (cessna, rf_bvh) — a >8-prim unsplittable cluster the RF format
-# cannot represent (the reference panics on the same input, rf.rs:113);
-# (teapots3, lbvh) — lbvh rejects beyond-VMEM scenes by contract;
-# (teapots3, rf_bvh/naive/bvh on CPU) — minutes-long threaded/brute
-# renders, covered on TPU by tools/tpu_check.py instead.
+pytestmark = pytest.mark.reference
+
+# The full handler matrix.  Non-applicable cell: (cessna, rf_bvh) — a
+# >8-prim unsplittable cluster the RF format cannot represent (the
+# reference panics on the same input, rf.rs:113).
 MATRIX = [
     ("naive", {}),
-    ("bvh", {}),
-    ("rf_bvh", {}),
-    ("pbvh", {"interpret": True}),
-    ("lbvh", {"interpret": True}),
+    ("bvh", {"backend": "threaded"}),
+    ("rf_bvh", {"backend": "threaded"}),
+    ("pbvh", {}),
+    ("lbvh", {}),
 ]
 
 
@@ -94,24 +89,21 @@ def test_golden_presets(meshes_dir, scenes_dir, name, handler, kwargs):
 
 def test_golden_ghost_fallback_branch(meshes_dir, scenes_dir):
     """The ghost golden must actually exercise the negative-material
-    XLA fallback (pbvh interpret kernels through renderer._render_jit's
-    else-branch)."""
+    XLA fallback (renderer._render_jit's else-branch)."""
     scene = presets.ghost_scene(-1)
     assert not scene.pack().no_negative_materials
-    _check(_render(scene, 4, "pbvh", {"interpret": True}), "ghost")
+    _check(_render(scene, 4, "pbvh", {}), "ghost")
 
 
-def test_golden_segmented(scenes_dir):
-    """teapots3 (18,960 prims) must route pbvh to the segmented
-    kernel and reproduce the naive golden through it."""
-    from rt_rs_tpu.ops.pallas.packet_trace import SegmentedTriChunks
+def test_golden_large_table(scenes_dir):
+    """teapots3 (18,960 prims) builds ONE chunk table and reproduces the
+    naive golden through it."""
+    from rt_rs_tpu.ops.pallas.packet_trace import TriChunks
 
     scene = presets.tiled_teapots(3, scenes_dir=str(scenes_dir))
     r = Renderer(
-        scene,
-        config=Config(resolution=Resolution.sized(W, H)),
+        scene, config=Config(resolution=Resolution.sized(W, H)),
         handler="pbvh",
-        handler_kwargs={"interpret": True},
     )
-    assert isinstance(r.accel, SegmentedTriChunks)
+    assert isinstance(r.accel, TriChunks)
     _check(r.render_image(), "teapots3")

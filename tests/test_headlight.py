@@ -9,7 +9,6 @@ import pytest
 
 from rt_rs_tpu.config import ComputeConfig, Config, Resolution
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
 from .oracle import Oracle
 
@@ -17,8 +16,9 @@ W, H = 24, 16
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(small_scene):
+    """The generated 50-triangle scene."""
+    return small_scene
 
 
 def test_headlight_matches_oracle(default_scene):

@@ -1,11 +1,9 @@
 """Unit tests for the golden comparison helper (no rendering).
 
-``golden_diff_ok`` is the shared gate of tools/tpu_check.py and
-bench.py's correctness attestation; the edge-flip mode exists for
-negative-material scenes that route through the per-backend XLA
-fallback (renderer.py:107), where knife-edge hit/miss pixels may
-legitimately flip between the CPU golden and a TPU render (observed:
-3 silhouette pixels on the ghost scene, round 5)."""
+``golden_diff_ok`` compares a render against a golden image; the
+edge-flip mode exists for negative-material scenes that route through
+the per-backend XLA fallback, where knife-edge hit/miss pixels may
+legitimately flip between a CPU golden and an accelerator render."""
 
 import numpy as np
 

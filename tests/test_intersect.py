@@ -5,7 +5,6 @@ import pytest
 
 from rt_rs_tpu.config import ComputeConfig
 from rt_rs_tpu.ops.intersect import closest_hit_bruteforce, slab_test, tri_intersect
-from rt_rs_tpu.scene import Scene
 
 from .oracle import Oracle
 
@@ -13,8 +12,9 @@ import jax.numpy as jnp
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(small_scene):
+    """The generated 50-triangle scene."""
+    return small_scene
 
 
 def _random_rays(rng, n, spread=4.0):

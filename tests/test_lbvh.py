@@ -14,17 +14,18 @@ from rt_rs_tpu.ops.lbvh import (
     refit_bounds,
 )
 from rt_rs_tpu.renderer import DynamicRenderer, Renderer
-from rt_rs_tpu.scene import Scene
+from rt_rs_tpu.scene.procedural import base_scene as make_base_scene
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(base_scene):
+    return base_scene
 
 
 @pytest.fixture(scope="module")
-def teatime_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "teatime.json"))
+def teatime_scene():
+    """A second generated scene (another seed, same scale)."""
+    return make_base_scene(1)
 
 
 def test_morton_codes_basic():
@@ -110,7 +111,7 @@ def _compare(scene, rays=128, seed=21):
     naive = get_handler("naive")
     _, na = naive.build(scene, arrays)
     naive_fn = naive.intersect_fn(None, na, cfg)
-    h = get_handler("lbvh", interpret=True)
+    h = get_handler("lbvh")
     accel, ha = h.build(scene, arrays)
     h_fn = h.intersect_fn(accel, ha, cfg)
 
@@ -185,7 +186,7 @@ def test_device_built_bvh_renders(default_scene):
     )
     for handler, kwargs in (
         ("bvh", dict(data=data)),
-        ("pbvh", dict(data=data, interpret=True)),
+        ("pbvh", dict(data=data)),
     ):
         img = np.asarray(
             Renderer(
@@ -202,11 +203,9 @@ def test_dynamic_refit_matches_rebuild(default_scene):
     w, h = 32, 24
     cfg = Config(resolution=Resolution.sized(w, h))
     dyn_refit = DynamicRenderer(
-        default_scene, config=cfg, interpret=True, refit=True
+        default_scene, config=cfg, refit=True
     )
-    dyn_full = DynamicRenderer(
-        default_scene, config=cfg, interpret=True
-    )
+    dyn_full = DynamicRenderer(default_scene, config=cfg)
     shift = np.array([0.4, 0.2, -0.3], dtype=np.float32)
     moved = default_scene.vert_pos + shift
     np.testing.assert_allclose(
@@ -223,7 +222,6 @@ def test_dynamic_rebuild(default_scene):
     dyn = DynamicRenderer(
         default_scene,
         config=Config(resolution=Resolution.sized(w, h)),
-        interpret=True,
     )
     shift = np.array([0.5, -0.25, 0.3], dtype=np.float32)
     moved = default_scene.vert_pos + shift
@@ -255,37 +253,33 @@ def test_dynamic_rebuild(default_scene):
     np.testing.assert_allclose(frame_back, frame_static, atol=1e-5)
 
 
-def test_lbvh_tiled_and_rows_match_gather(teatime_scene):
-    """Round-3: the lbvh handler runs on the tuned packet kernel with a
-    native tiled entry, on-device attr table, and rows/any-hit — same
-    contracts as pbvh (VERDICT round-2 item 1)."""
+def test_lbvh_tiled_and_anyhit_match(teatime_scene):
+    """The lbvh handler exposes the same tiled and any-hit entries as
+    pbvh on the tuned configuration; the any-hit shadow path renders
+    the identical image."""
     from rt_rs_tpu.ops import shade
 
     cfg = ComputeConfig()
     arrays = teatime_scene.pack()
-    h = get_handler("lbvh", interpret=True)
+    h = get_handler("lbvh")
     assert h.block_lanes == 256  # tuned ray tile
     accel, arr2 = h.build(teatime_scene, arrays)
-    # Tuned chunk height + on-device attr table present.
-    assert accel.comp.shape[1] == 64
-    assert accel.attr_t is not None
+    assert accel.tri_chunk == 64  # tuned chunk height
 
     pos = jnp.asarray(teatime_scene.camera.pos, jnp.float32)
     at = jnp.asarray(teatime_scene.camera.at, jnp.float32)
-    rows_fn = h.intersect_tiled_rows_fn(accel, arr2, cfg)
     anyhit_fn = h.intersect_tiled_anyhit_fn(accel, arr2, cfg)
-    assert rows_fn is not None and anyhit_fn is not None
+    assert anyhit_fn is not None
     base = shade.render_tiled(
         arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-        48, 32, ray_tile=256, block=(16, 16), interpret=True,
+        48, 32, ray_tile=256, block=(16, 16),
     )
     fast = shade.render_tiled(
         arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-        48, 32, ray_tile=256, block=(16, 16), interpret=True,
-        intersect_rows_fn=rows_fn,
+        48, 32, ray_tile=256, block=(16, 16),
         intersect_anyhit_fn=anyhit_fn,
     )
-    np.testing.assert_allclose(np.asarray(fast), np.asarray(base), atol=2e-6)
+    np.testing.assert_array_equal(np.asarray(fast), np.asarray(base))
 
 
 def test_lbvh_renderer_matches_naive(default_scene):
@@ -295,29 +289,23 @@ def test_lbvh_renderer_matches_naive(default_scene):
         Renderer(default_scene, config=cfg, handler="naive").render_frame()
     )
     img = np.asarray(
-        Renderer(
-            default_scene, config=cfg, handler="lbvh",
-            handler_kwargs={"interpret": True},
-        ).render_frame()
+        Renderer(default_scene, config=cfg, handler="lbvh").render_frame()
     )
     np.testing.assert_allclose(img, ref, atol=1e-5)
 
 
-def test_dynamic_rows_path_matches(default_scene):
-    """DynamicRenderer's rows/any-hit branch (the default at every
-    size since the late-round-3 re-sweep) must equal the gather branch
-    (force_rows=False)."""
-    w, h = 32, 24
-    cfg = Config(resolution=Resolution.sized(w, h))
+def test_dynamic_refine_off_matches(default_scene):
+    """DynamicRenderer's per-ray cull of bounce/shadow batches is exact:
+    frames with it off agree (rebuild and refit)."""
+    cfg = Config(resolution=Resolution.sized(32, 24))
     base = np.asarray(
-        DynamicRenderer(
-            default_scene, config=cfg, interpret=True, force_rows=False
-        ).render_frame(default_scene.vert_pos)
+        DynamicRenderer(default_scene, config=cfg).render_frame(
+            default_scene.vert_pos
+        )
     )
     for refit in (False, True):
         dyn = DynamicRenderer(
-            default_scene, config=cfg, interpret=True, refit=refit,
-            force_rows=True,
+            default_scene, config=cfg, refit=refit, refine=False
         )
         np.testing.assert_allclose(
             np.asarray(dyn.render_frame(default_scene.vert_pos)), base,
@@ -325,45 +313,29 @@ def test_dynamic_rows_path_matches(default_scene):
         )
 
 
-def test_dynamic_rows_rejects_nonfinite_inputs(default_scene):
-    """Rows enabled + non-finite per-frame vertex data must fail loud
-    (the per-frame attr build would otherwise NaN-poison whole tiles
-    through the rows matmul — see build_tri_chunks); the gather path
-    (force_rows=False) renders such geometry fine."""
+def test_dynamic_nonfinite_normals_stay_local(default_scene):
+    """Non-finite per-frame normals (the degenerate-face import
+    outcome) render: NaN stays confined to pixels hitting the
+    degenerate prim, the rest of the frame still renders lit
+    geometry."""
     cfg = Config(resolution=Resolution.sized(32, 24))
-    dyn = DynamicRenderer(
-        default_scene, config=cfg, interpret=True, force_rows=True
-    )
+    dyn = DynamicRenderer(default_scene, config=cfg)
     vp = np.asarray(default_scene.vert_pos, np.float32)
     bad_norm = np.asarray(default_scene.vert_norm, np.float32).copy()
-    bad_norm[0] = np.nan  # the degenerate-face import outcome
-    with pytest.raises(ValueError, match="non-finite"):
-        dyn.render_frame(vp, bad_norm)
-    # The gather path accepts the same input (NaN confined to pixels
-    # hitting the degenerate prim; positions stay finite so the
-    # on-device Morton build is unaffected).
-    dyn_g = DynamicRenderer(
-        default_scene, config=cfg, interpret=True, force_rows=False
-    )
-    frame = np.asarray(dyn_g.render_frame(vp, bad_norm))
-    # NaN is confined to pixels hitting the degenerate prim; the rest
-    # of the frame still renders lit geometry.
+    bad_norm[4] = np.nan
+    frame = np.asarray(dyn.render_frame(vp, bad_norm))
     assert np.nan_to_num(frame).sum() > 0
+    assert np.isfinite(frame).mean() > 0.9
 
 
-def test_lbvh_attr_cap_scales_with_tri_chunk(teatime_scene):
-    """The with-attrs cap is byte-true at the actual chunk height:
-    teatime (6,320 tris) fits attrs at tc=64 (cap 8,192) but NOT at
-    tc=16 (attr_t is 16 KB/chunk -> cap 4,096) — building an attr
-    table the rows path then rejects would waste device memory."""
+@pytest.mark.parametrize("tri_chunk", [16, 64])
+def test_lbvh_tri_chunk_variants(teatime_scene, tri_chunk):
+    """Any chunk height builds one flat compact table with the same
+    triangles."""
     from rt_rs_tpu.handlers.lbvh import LbvhIntrs
 
     arrays = teatime_scene.pack()
-    acc64, _ = LbvhIntrs(interpret=True, tri_chunk=64).build(
-        teatime_scene, arrays
-    )
-    assert acc64.attr_t is not None
-    acc16, _ = LbvhIntrs(interpret=True, tri_chunk=16).build(
-        teatime_scene, arrays
-    )
-    assert acc16.attr_t is None
+    acc, _ = LbvhIntrs(tri_chunk=tri_chunk).build(teatime_scene, arrays)
+    assert acc.tri_chunk == tri_chunk
+    assert acc.comp.shape == (9, acc.num_chunks * tri_chunk)
+    assert acc.num_chunks * tri_chunk >= teatime_scene.num_prims

@@ -18,6 +18,7 @@ def teatime_scene(scenes_dir):
     return Scene.load(str(scenes_dir / "teatime.json"))
 
 
+@pytest.mark.reference
 def test_native_bvh_bit_exact_vs_python(teatime_scene):
     for eps, target in [(0.02, 2), (1.95, 2), (0.02, 4)]:
         py = BvhData.from_tree(
@@ -35,6 +36,7 @@ def test_native_bvh_bit_exact_vs_python(teatime_scene):
         np.testing.assert_array_equal(nb["indices"], py.indices)
 
 
+@pytest.mark.reference
 def test_native_bvh_matches_shipped_checkpoint(teatime_scene, scenes_dir):
     ref = BvhData.load(str(scenes_dir / "teatime.bvh.json"))
     nb = bindings.bvh_build_native(
@@ -45,6 +47,7 @@ def test_native_bvh_matches_shipped_checkpoint(teatime_scene, scenes_dir):
     np.testing.assert_array_equal(nb["indices"], ref.indices)
 
 
+@pytest.mark.reference
 @pytest.mark.parametrize(
     "mesh", ["tetrahedron", "dodecahedron", "teapot", "shuttle", "cessna"]
 )
@@ -67,6 +70,7 @@ def test_native_obj_matches_python(meshes_dir, mesh):
                 np.testing.assert_allclose(a, b)
 
 
+@pytest.mark.reference
 def test_native_scene_build_equivalent(meshes_dir):
     """End-to-end: add_mesh through native vs python loaders gives
     identical scenes."""

@@ -1,4 +1,4 @@
-"""The negative-material fallback path (VERDICT round-3 item 2).
+"""The negative-material fallback path.
 
 The reference's miss sentinel is a null prim with ``material = -1``
 (``src/lib/scene/mod.rs:161-166``), and the shader treats ANY
@@ -152,7 +152,6 @@ def test_dynamic_renderer_negative_material(neg_scene, naive_image):
     dr = DynamicRenderer(
         neg_scene, config=Config(resolution=Resolution.sized(W, H))
     )
-    assert not dr._use_rows
     frame = np.asarray(
         dr.render_frame(neg_scene.vert_pos, neg_scene.vert_norm)
     )

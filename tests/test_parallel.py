@@ -1,4 +1,4 @@
-"""Multi-chip sharding on the virtual 8-device CPU mesh."""
+"""Multi-device sharding on the virtual 8-device CPU mesh."""
 
 import numpy as np
 import pytest
@@ -13,14 +13,13 @@ from rt_rs_tpu.parallel import (
     make_sharded_render,
 )
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
 import jax.numpy as jnp
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(base_scene):
+    return base_scene
 
 
 def test_eight_virtual_devices():
@@ -59,9 +58,8 @@ def test_sharded_render_matches_single(default_scene):
 
 
 def test_sharded_packet_kernel_matches_single(default_scene):
-    """The exact configuration the driver's multichip dryrun gates on:
-    the Pallas packet kernel (pbvh, interpret on CPU) under shard_map
-    over the full 8-device mesh."""
+    """The Pallas packet kernel (pbvh, interpreted on CPU) under
+    shard_map over the full 8-device mesh."""
     w, h = 64, 64  # h divides 8
     cfg = ComputeConfig(bounces=2)
     handler = get_handler("pbvh")
@@ -113,10 +111,10 @@ def test_height_must_divide(default_scene):
         make_sharded_render(handler, accel, arrays, cfg, 16, 9, image_mesh(8))
 
 
-def test_sharded_rows_anyhit_path_matches_single(default_scene):
-    """Round-3 fast-path parity (VERDICT item 4): the kernel-emitted
-    rows + any-hit shadow branch under shard_map equals the single-chip
-    render; wg-hint block tuning is honored via `resolution`."""
+def test_sharded_anyhit_path_matches_single(default_scene):
+    """The tiled + any-hit shadow branch under shard_map equals the
+    single-device render; wg-hint block tuning is honored via
+    `resolution`."""
     w, h = 64, 64
     cfg = ComputeConfig(bounces=2)
     handler = get_handler("pbvh")
@@ -127,7 +125,6 @@ def test_sharded_rows_anyhit_path_matches_single(default_scene):
     fn = make_sharded_render(
         handler, accel, arrays, cfg, w, h, mesh,
         resolution=Resolution.fixed(w, h, 16),
-        force_rows=True,
     )
     frame, _ = fn(
         jnp.asarray(default_scene.camera.pos, jnp.float32),
@@ -156,12 +153,10 @@ def _single_frame(scene, cfg, w, h, **hkw):
     )
 
 
-def test_scene_parallel_rows_matches_single(default_scene):
+def test_scene_parallel_matches_single(default_scene):
     """2-D mesh (2 bands x 4 scene shards): the chunk table splits
-    across the scene axis (tri_chunk=8 -> 32 chunks -> 8 real chunks
-    per shard) and per-call pmin/pmax merges reproduce the sequential
-    semantics.  Default path = kernel-emitted rows + any-hit (attrs
-    present), full fidelity with bounces so exclusion ids cross the
+    across the scene axis and per-call pmin/psum merges reproduce the
+    sequential semantics, with bounces so exclusion ids cross the
     shard shift."""
     w, h = 64, 32
     cfg = ComputeConfig(bounces=2)
@@ -179,20 +174,16 @@ def test_scene_parallel_rows_matches_single(default_scene):
     np.testing.assert_allclose(np.asarray(frame), single, atol=1e-5)
 
 
-def test_scene_parallel_gather_path_matches_single(default_scene):
-    """Scene-parallel closest-hit merge on the gather path (rows
-    forced off -> fused shadow+bounce batches through the plain
-    min-t + pid tie-break merge), 4 bands x 2 shards."""
+def test_scene_parallel_four_bands_matches_single(default_scene):
+    """4 bands x 2 shards, on the plain-lax chunk loop."""
     w, h = 64, 32
     cfg = ComputeConfig(bounces=2)
-    handler = get_handler("pbvh", tri_chunk=8)
+    handler = get_handler("pbvh", tri_chunk=8, loop="lax")
     arrays = default_scene.pack()
     accel, arrays = handler.build(default_scene, arrays)
 
     mesh = hybrid_mesh(4, 2)
-    fn = make_sharded_render(
-        handler, accel, arrays, cfg, w, h, mesh, force_rows=False
-    )
+    fn = make_sharded_render(handler, accel, arrays, cfg, w, h, mesh)
     frame, _ = fn(
         jnp.asarray(default_scene.camera.pos, jnp.float32),
         jnp.asarray(default_scene.camera.at, jnp.float32),
@@ -214,13 +205,14 @@ def test_scene_parallel_requires_packet_table(default_scene):
 
 
 def test_scene_parallel_nondividing_shards(default_scene):
-    """3 shards over a 32-chunk table forces tail padding (pad to 33,
-    11 chunks/shard) — pad chunks must never hit or shift ids."""
+    """3 shards over a 800-chunk table forces tail padding (pad to 801,
+    267 chunks/shard) — pad chunks must never hit or shift ids."""
     w, h = 32, 16
     cfg = ComputeConfig(bounces=2)
     handler = get_handler("pbvh", tri_chunk=8)
     arrays = default_scene.pack()
     accel, arrays = handler.build(default_scene, arrays)
+    assert accel.num_chunks % 3
 
     mesh = hybrid_mesh(1, 3)
     fn = make_sharded_render(handler, accel, arrays, cfg, w, h, mesh)
@@ -232,28 +224,20 @@ def test_scene_parallel_nondividing_shards(default_scene):
     np.testing.assert_allclose(np.asarray(frame), single, atol=1e-5)
 
 
-def test_scene_parallel_local_segmented(scenes_dir, monkeypatch):
-    """A shard whose slice exceeds the VMEM cap runs the segmented
-    kernel via split_chunks_traced inside shard_map (static local
-    segment bases composing with the traced shard base).  Forced by
-    shrinking the VMEM budget: teatime at tri_chunk=8 -> 800 chunks ->
-    400/shard -> 13 local segments under MAX_VMEM_CHUNKS=16."""
-    from rt_rs_tpu.ops.pallas import packet_trace as pt
-
-    scene = Scene.load(str(scenes_dir / "teatime.json"))
+def test_scene_parallel_dual_table_shards_coarse(default_scene):
+    """A handler with dual tables shards its coarse table; frames match
+    the single-device dual render."""
     w, h = 32, 16
     cfg = ComputeConfig(bounces=2)
-    handler = get_handler("pbvh", tri_chunk=8)
-    arrays = scene.pack()
-    accel, arrays = handler.build(scene, arrays)
-
-    single = _single_frame(scene, cfg, w, h, tri_chunk=8)
-
-    monkeypatch.setattr(pt, "MAX_VMEM_CHUNKS", 16)
-    mesh = hybrid_mesh(1, 2)
-    fn = make_sharded_render(handler, accel, arrays, cfg, w, h, mesh)
-    frame, _ = fn(
-        jnp.asarray(scene.camera.pos, jnp.float32),
-        jnp.asarray(scene.camera.at, jnp.float32),
+    handler = get_handler("pbvh", tri_chunk_fine=16)
+    arrays = default_scene.pack()
+    accel, arrays = handler.build(default_scene, arrays)
+    fn = make_sharded_render(
+        handler, accel, arrays, cfg, w, h, hybrid_mesh(2, 2)
     )
+    frame, _ = fn(
+        jnp.asarray(default_scene.camera.pos, jnp.float32),
+        jnp.asarray(default_scene.camera.at, jnp.float32),
+    )
+    single = _single_frame(default_scene, cfg, w, h, tri_chunk_fine=16)
     np.testing.assert_allclose(np.asarray(frame), single, atol=1e-5)

@@ -1,4 +1,5 @@
-"""Packet-BVH (Pallas kernel, interpret mode on CPU) equivalence tests."""
+"""Packet-BVH equivalence tests (Pallas kernel in interpret mode on CPU),
+on the generated base scene."""
 
 import numpy as np
 import pytest
@@ -8,21 +9,15 @@ import jax.numpy as jnp
 from rt_rs_tpu.config import ComputeConfig, Config, Resolution
 from rt_rs_tpu.handlers import get_handler
 from rt_rs_tpu.ops.pallas.packet_trace import (
-    build_tri_chunks,
-    chunk_overlap_mask,
+    DualTriChunks,
+    TriChunks,
+    chunk_overlap_mask_cm,
+    chunk_overlap_mask_perray_cm,
+    packet_closest_hit_tiled,
 )
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
-
-@pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
-
-
-@pytest.fixture(scope="module")
-def teatime_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "teatime.json"))
+RES = Config(resolution=Resolution.sized(48, 32))
 
 
 def _rand_rays(rng, n, scale=8.0):
@@ -32,7 +27,16 @@ def _rand_rays(rng, n, scale=8.0):
     return o, d
 
 
-def _compare(scene, rays=256, seed=7):
+def _rand_payload(rng, t_tiles=32, r=256, scale=5.0):
+    o = rng.normal(size=(3, t_tiles, r), scale=scale).astype(np.float32)
+    d = rng.normal(size=(3, t_tiles, r)).astype(np.float32)
+    payload = jnp.concatenate(
+        [jnp.asarray(o), jnp.asarray(d), jnp.zeros((2, t_tiles, r), jnp.float32)]
+    )
+    return payload, jnp.asarray(rng.random((t_tiles, r)) > 0.3)
+
+
+def _compare(scene, rays=256, seed=7, **handler_kw):
     cfg = ComputeConfig()
     arrays = scene.pack()
 
@@ -40,113 +44,106 @@ def _compare(scene, rays=256, seed=7):
     _, na = naive.build(scene, arrays)
     naive_fn = naive.intersect_fn(None, na, cfg)
 
-    h = get_handler("pbvh", interpret=True)
+    h = get_handler("pbvh", **handler_kw)
     accel, ha = h.build(scene, arrays)
     h_fn = h.intersect_fn(accel, ha, cfg)
 
     rng = np.random.default_rng(seed)
     o, d = _rand_rays(rng, rays)
     excl = jnp.zeros((rays,), dtype=jnp.int32)
-
-    ones = jnp.ones((o.shape[0],), dtype=bool)
+    ones = jnp.ones((rays,), dtype=bool)
     t0, id0 = naive_fn(jnp.asarray(o), jnp.asarray(d), excl, ones)
     t1, id1 = h_fn(jnp.asarray(o), jnp.asarray(d), excl, ones)
     np.testing.assert_allclose(np.asarray(t1), np.asarray(t0), rtol=1e-5)
     assert ((np.asarray(id1) == 0) == (np.asarray(id0) == 0)).all()
 
 
-def test_pbvh_matches_naive_default(default_scene):
-    _compare(default_scene)
+def _frame(scene, handler, cfg=RES, **handler_kw):
+    return np.asarray(
+        Renderer(
+            scene, config=cfg, handler=handler, handler_kwargs=handler_kw
+        ).render_frame()
+    )
+
+
+@pytest.fixture(scope="module")
+def naive_frame(base_scene):
+    return _frame(base_scene, "naive")
+
+
+@pytest.fixture(scope="module")
+def accel(base_scene):
+    return get_handler("pbvh").build(base_scene, base_scene.pack())[0]
+
+
+def test_pbvh_matches_naive_default(base_scene):
+    _compare(base_scene)
 
 
 @pytest.mark.parametrize("cull_block", [1, 4, 32])
-def test_pbvh_cull_block_granularities(default_scene, cull_block):
+def test_pbvh_cull_block_granularities(base_scene, cull_block):
     """Culling granularity is a perf knob only — results are exact at
     every block size (1 = per-chunk, 32 = CHUNK_ALIGN)."""
-    cfg = ComputeConfig()
-    arrays = default_scene.pack()
-    naive = get_handler("naive")
-    _, na = naive.build(default_scene, arrays)
-    naive_fn = naive.intersect_fn(None, na, cfg)
-
-    h = get_handler("pbvh", interpret=True, cull_block=cull_block)
-    accel, ha = h.build(default_scene, arrays)
-    h_fn = h.intersect_fn(accel, ha, cfg)
-
-    rng = np.random.default_rng(11)
-    o, d = _rand_rays(rng, 256)
-    excl = jnp.zeros((256,), dtype=jnp.int32)
-    ones = jnp.ones((256,), dtype=bool)
-    t0, id0 = naive_fn(jnp.asarray(o), jnp.asarray(d), excl, ones)
-    t1, id1 = h_fn(jnp.asarray(o), jnp.asarray(d), excl, ones)
-    np.testing.assert_allclose(np.asarray(t1), np.asarray(t0), rtol=1e-5)
-    assert ((np.asarray(id1) == 0) == (np.asarray(id0) == 0)).all()
+    _compare(base_scene, seed=11, cull_block=cull_block)
 
 
-def test_pbvh_matches_naive_teatime(teatime_scene):
-    _compare(teatime_scene, rays=128, seed=8)
+def test_pbvh_matches_naive_lax_loop(base_scene):
+    """The plain-lax chunk loop behind the same handler."""
+    _compare(base_scene, rays=128, seed=8, loop="lax")
 
 
-def test_pbvh_render_matches_naive(default_scene):
-    cfg = Config(resolution=Resolution.sized(48, 32))
-    f_naive = np.asarray(
-        Renderer(default_scene, config=cfg, handler="naive").render_frame()
+def test_pbvh_render_matches_naive(base_scene, naive_frame):
+    np.testing.assert_allclose(
+        _frame(base_scene, "pbvh"), naive_frame, atol=1e-5
     )
-    f_p = np.asarray(
-        Renderer(
-            default_scene, config=cfg, handler="pbvh",
-            handler_kwargs=dict(interpret=True),
-        ).render_frame()
+
+
+def test_pbvh_render_lax_loop_matches_kernel(base_scene):
+    """The kernel and the lax loop see the same lists and keep the same
+    winner: whole frames agree exactly."""
+    np.testing.assert_array_equal(
+        _frame(base_scene, "pbvh", loop="lax"), _frame(base_scene, "pbvh")
     )
-    np.testing.assert_allclose(f_p, f_naive, atol=1e-5)
 
 
-def test_chunk_bounds_cover(teatime_scene):
-    """Every triangle's vertices lie inside its chunk AABB."""
-    h = get_handler("pbvh", interpret=True)
-    accel, arrays = h.build(teatime_scene, teatime_scene.pack())
-    comp = np.asarray(accel.comp)  # [Nc, 8, 128]; components in lanes 0..8
+def test_chunk_bounds_cover(accel):
+    """Every triangle's vertices lie inside its chunk AABB, and the
+    table is the compact [9, Nc * tc] layout."""
+    tc = accel.tri_chunk
+    comp = np.asarray(accel.comp)
+    assert comp.shape == (9, accel.num_chunks * tc)
+    tri = comp.T.reshape(accel.num_chunks, tc, 9)
+    a = tri[:, :, 0:3]
+    b = a + tri[:, :, 3:6]
+    c = a + tri[:, :, 6:9]
+    real = np.abs(tri).sum(axis=2) > 0  # padded triangles are all-zero
     bmin = np.asarray(accel.bmin)
     bmax = np.asarray(accel.bmax)
-    a = comp[:, :, 0:3]  # [Nc, 8, 3]
-    b = a + comp[:, :, 3:6]
-    c = a + comp[:, :, 6:9]
-    # Skip padded (degenerate all-zero) triangles.
-    real = np.abs(comp[:, :, 0:9]).sum(axis=2) > 0  # [Nc, 8]
     for corner in (a, b, c):
-        for ch in range(accel.num_chunks):
-            rows = real[ch]
-            if not rows.any():
-                continue
-            lo = corner[ch][rows].min(axis=0)
-            hi = corner[ch][rows].max(axis=0)
-            assert (lo >= bmin[ch] - 1e-4).all()
-            assert (hi <= bmax[ch] + 1e-4).all()
+        lo = np.where(real[..., None], corner, np.inf).min(axis=1)
+        hi = np.where(real[..., None], corner, -np.inf).max(axis=1)
+        has = real.any(axis=1)
+        assert (lo[has] >= bmin[has] - 1e-4).all()
+        assert (hi[has] <= bmax[has] + 1e-4).all()
 
 
-def test_overlap_mask_conservative(default_scene):
+def test_overlap_mask_conservative(accel):
     """Culled (tile, chunk) pairs truly have no per-ray slab hits."""
     from rt_rs_tpu.ops.intersect import slab_test
 
-    h = get_handler("pbvh", interpret=True)
-    accel, arrays = h.build(default_scene, default_scene.pack())
     rng = np.random.default_rng(9)
     o, d = _rand_rays(rng, 128)
-    o_t = jnp.asarray(o).reshape(1, 128, 3)
-    inv = jnp.asarray(1.0 / d).reshape(1, 128, 3)
     valid = jnp.ones((1, 128), dtype=bool)
     mask = np.asarray(
-        chunk_overlap_mask(
-            o_t, inv, valid, accel.bmin, accel.bmax, t_min=0.01, t_max=1000.0
+        chunk_overlap_mask_cm(
+            jnp.asarray(o.T)[:, None, :], jnp.asarray(1.0 / d.T)[:, None, :],
+            valid, accel.bmin, accel.bmax, t_min=0.01, t_max=1000.0,
         )
     )[0]
     for c in range(accel.num_chunks):
-        empty = bool((np.asarray(accel.bmin[c]) > np.asarray(accel.bmax[c])).any())
-        if empty:
-            # Padded chunks (inverted bounds) must always be culled;
-            # the raw slab test passes them through (entry -inf/exit
-            # +inf), which is exactly why chunk_overlap_mask rejects
-            # min > max explicitly.
+        if (np.asarray(accel.bmin[c]) > np.asarray(accel.bmax[c])).any():
+            # Padded chunks (inverted bounds) must always be culled; the
+            # raw slab test passes them through (entry -inf / exit +inf).
             assert not mask[c], f"empty pad chunk {c} not culled"
         elif not mask[c]:
             per_ray = np.asarray(
@@ -159,391 +156,140 @@ def test_overlap_mask_conservative(default_scene):
 
 
 # ----------------------------------------------------------------------
-# Per-ray cull refinement (refine=True paths; round 3)
+# Per-ray cull refinement (refine=True paths)
 
 
-def test_refine_masks_agree_and_subset(teatime_scene):
-    """The Pallas refine kernel must reproduce the XLA per-ray mask
-    exactly, and both must be a subset of the tile-interval mask (the
+def test_refine_masks_agree_and_subset(accel):
+    """The per-ray mask is a subset of the tile-interval mask (the
     per-ray slab for any live ray is contained in the tile's interval
     product) while still covering every actual hit."""
-    from rt_rs_tpu.ops.pallas.packet_trace import (
-        _perray_overlap_kernel_call,
-        chunk_overlap_mask_cm,
-        chunk_overlap_mask_perray_cm,
-        packet_closest_hit_tiled,
-    )
-    import jax
-
     cfg = ComputeConfig()
-    h = get_handler("pbvh", interpret=True)
-    accel, _ = h.build(teatime_scene, teatime_scene.pack())
-
     rng = np.random.default_rng(11)
-    t_tiles, r = 32, 256
-    o = rng.normal(size=(3, t_tiles, r), scale=5.0).astype(np.float32)
-    d = rng.normal(size=(3, t_tiles, r)).astype(np.float32)
-    d[0, :, ::9] = 0.0  # axis-parallel rays (inf inverse clamp)
-    payload = jnp.concatenate(
-        [
-            jnp.asarray(o),
-            jnp.asarray(d),
-            jnp.zeros((2, t_tiles, r), jnp.float32),
-        ]
-    )
-    valid = jnp.asarray(rng.random((t_tiles, r)) > 0.3)
-    cap = jnp.asarray(
-        rng.uniform(1.0, 60.0, (t_tiles, r)).astype(np.float32)
-    )
+    payload, valid = _rand_payload(rng)
+    payload = payload.at[3, :, ::9].set(0.0)  # axis-parallel rays
+    cap = jnp.asarray(rng.uniform(1.0, 60.0, valid.shape).astype(np.float32))
     kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, t_cap=cap)
-
-    ov_x = chunk_overlap_mask_perray_cm(
-        payload[0:3], 1.0 / payload[3:6], valid,
-        accel.bmin, accel.bmax, **kw,
+    ov_r = chunk_overlap_mask_perray_cm(
+        payload[0:3], 1.0 / payload[3:6], valid, accel.bmin, accel.bmax, **kw
     )
-    ov_k = _perray_overlap_kernel_call(
-        payload, valid, accel.bmin, accel.bmax, interpret=True, **kw
-    )
-    np.testing.assert_array_equal(np.asarray(ov_k), np.asarray(ov_x))
-
     ov_int = chunk_overlap_mask_cm(
-        payload[0:3], 1.0 / payload[3:6], valid,
-        accel.bmin, accel.bmax, **kw,
+        payload[0:3], 1.0 / payload[3:6], valid, accel.bmin, accel.bmax, **kw
     )
-    assert not np.any(np.asarray(ov_k) & ~np.asarray(ov_int))
+    assert not np.any(np.asarray(ov_r) & ~np.asarray(ov_int))
 
-    # Conservativeness: every sub-cap hit of the unrefined kernel ray
-    # must still be found with refine on.
-    t0, i0 = packet_closest_hit_tiled(
-        accel, payload, valid, cap,
-        t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, interpret=True,
-    )
+    # Conservativeness: every sub-cap hit of the unrefined trace must
+    # still be found with refine on.
+    win = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps)
+    t0, i0 = packet_closest_hit_tiled(accel, payload, valid, cap, **win)
     t1, i1 = packet_closest_hit_tiled(
-        accel, payload, valid, cap, refine=True,
-        t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, interpret=True,
+        accel, payload, valid, cap, refine=True, **win
     )
     below = np.asarray(valid) & (np.asarray(t0) < np.asarray(cap))
-    np.testing.assert_array_equal(
-        np.asarray(t1)[below], np.asarray(t0)[below]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(i1)[below], np.asarray(i0)[below]
-    )
+    np.testing.assert_array_equal(np.asarray(t1)[below], np.asarray(t0)[below])
+    np.testing.assert_array_equal(np.asarray(i1)[below], np.asarray(i0)[below])
 
 
 @pytest.mark.parametrize("refine", ["off", "bounces", "all"])
-def test_refine_render_equal(teatime_scene, refine):
+def test_refine_render_equal(base_scene, refine, naive_frame):
     """Full jitted frames agree across refine modes to the suite's
-    cross-path tolerance.  The cull itself is exact (see the non-jit
-    bit-exact check below); under jit the extra refine kernel shifts
-    XLA fusion boundaries, which perturbs FMA contraction in
-    surrounding glue at the ~1-ULP level — same class of difference
-    as trace() vs trace_tiled()."""
-    res = Config(resolution=Resolution.sized(96, 64))
-    base = Renderer(
-        teatime_scene, config=res, handler="pbvh",
-        handler_kwargs=dict(interpret=True, refine="off"),
-    )
-    other = Renderer(
-        teatime_scene, config=res, handler="pbvh",
-        handler_kwargs=dict(interpret=True, refine=refine),
-    )
+    cross-path tolerance (the cull is exact; under jit the extra cull
+    shifts XLA fusion boundaries in surrounding glue at the ~1-ULP
+    level — same class as trace() vs trace_tiled())."""
     np.testing.assert_allclose(
-        np.asarray(other.render_frame()),
-        np.asarray(base.render_frame()),
-        rtol=1e-5, atol=1e-6,
+        _frame(base_scene, "pbvh", refine=refine), naive_frame,
+        rtol=1e-5, atol=1e-5,
     )
 
 
-def test_refine_trace_bit_exact(teatime_scene):
+def test_refine_trace_bit_exact(base_scene):
     """Outside jit (eager trace_tiled), refine modes ARE bit-exact:
     the refinement only prunes chunks the rays cannot hit, and the
-    kernel math per surviving chunk is untouched."""
-    import jax.numpy as _jnp
-    from rt_rs_tpu.ops import shade as _shade
+    per-chunk math is untouched."""
+    from rt_rs_tpu.ops import shade
 
-    cfg = ComputeConfig()
-    arrays = teatime_scene.pack()
+    cfg = ComputeConfig(bounces=2)
+    arrays = base_scene.pack()
     colors = {}
     for mode in ("off", "all"):
-        h = get_handler("pbvh", interpret=True, refine=mode)
-        accel, arr2 = h.build(teatime_scene, arrays)
-        tiso = h.intersect_tiled_fn(accel, arr2, cfg)
-        pos = _jnp.asarray(teatime_scene.camera.pos, _jnp.float32)
-        at = _jnp.asarray(teatime_scene.camera.at, _jnp.float32)
-        payload, valid, _ = _shade.camera_ray_tiles(
-            pos, at, 96, 64, 256, block=(16, 16)
+        h = get_handler("pbvh", refine=mode)
+        accel, arr2 = h.build(base_scene, arrays)
+        pos = jnp.asarray(base_scene.camera.pos, jnp.float32)
+        at = jnp.asarray(base_scene.camera.at, jnp.float32)
+        payload, valid, _ = shade.camera_ray_tiles(
+            pos, at, 48, 32, 256, block=(16, 16)
         )
         colors[mode] = np.asarray(
-            _shade.trace_tiled(
-                arr2, tiso, cfg, payload, valid, pos, interpret=True
+            shade.trace_tiled(
+                arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg,
+                payload, valid, pos,
             )
         )
     np.testing.assert_array_equal(colors["all"], colors["off"])
 
 
-def test_refine_segmented_bit_exact(teatime_scene):
-    """Segmented tables take the refined per-segment culls (with
-    per-ray chained caps) — chained segmented closest-hit must match
-    the unrefined result exactly."""
-    from rt_rs_tpu.ops.pallas.packet_trace import (
-        packet_closest_hit_segmented_tiled,
-        split_chunks,
-    )
-
-    cfg = ComputeConfig()
-    h = get_handler("pbvh", interpret=True)
-    accel, _ = h.build(teatime_scene, teatime_scene.pack())
-    seg = split_chunks(accel, max_seg_tris=1024)
-    rng = np.random.default_rng(3)
-    t_tiles, r = 32, 256
-    o = rng.normal(size=(3, t_tiles, r), scale=5.0).astype(np.float32)
-    d = rng.normal(size=(3, t_tiles, r)).astype(np.float32)
-    payload = jnp.concatenate(
-        [
-            jnp.asarray(o),
-            jnp.asarray(d),
-            jnp.zeros((2, t_tiles, r), jnp.float32),
-        ]
-    )
-    valid = jnp.asarray(rng.random((t_tiles, r)) > 0.3)
-    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
-              interpret=True)
-    t0, i0 = packet_closest_hit_segmented_tiled(
-        seg, payload, valid, **kw
-    )
-    t1, i1 = packet_closest_hit_segmented_tiled(
-        seg, payload, valid, refine=True, **kw
-    )
-    v = np.asarray(valid)
-    np.testing.assert_array_equal(np.asarray(t1)[v], np.asarray(t0)[v])
-    np.testing.assert_array_equal(np.asarray(i1)[v], np.asarray(i0)[v])
-
-
 @pytest.mark.parametrize("tri_chunk", [16, 32])
-def test_pbvh_render_tri_chunk_variants(default_scene, tri_chunk):
-    """tri_chunk is a perf knob only (chunk-granularity re-sweeps,
-    PERF.md round 3) — full renders match naive at every size."""
-    cfg = Config(resolution=Resolution.sized(48, 32))
-    f_naive = np.asarray(
-        Renderer(default_scene, config=cfg, handler="naive").render_frame()
-    )
-    f_p = np.asarray(
-        Renderer(
-            default_scene, config=cfg, handler="pbvh",
-            handler_kwargs=dict(interpret=True, tri_chunk=tri_chunk),
-        ).render_frame()
-    )
-    np.testing.assert_allclose(f_p, f_naive, atol=1e-5)
-
-
-def test_dual_tables_segmented_dispatch(teatime_scene):
-    """Dual tables over SEGMENTED (beyond-VMEM) chunk tables: the
-    refine-keyed dispatch must route refine batches to the fine
-    segments and primaries to the coarse ones, with results equal to
-    the single-table segmented kernel (prim ids are tc-invariant in
-    dense leaf order, and refinement only prunes unhittable chunks)."""
-    from rt_rs_tpu.ops.pallas.packet_trace import (
-        DualTriChunks,
-        SegmentedTriChunks,
-        build_tri_chunks,
-        packet_closest_hit_segmented_tiled,
-        split_chunks,
+def test_pbvh_render_tri_chunk_variants(base_scene, naive_frame, tri_chunk):
+    """tri_chunk is a perf knob only — full renders match naive at
+    every chunk height."""
+    np.testing.assert_allclose(
+        _frame(base_scene, "pbvh", tri_chunk=tri_chunk), naive_frame,
+        atol=1e-5,
     )
 
+
+def test_dual_tables_dispatch(base_scene):
+    """Dual tables: the refine-keyed dispatch routes refine batches to
+    the fine table and primaries to the coarse one, with results equal
+    to the single tables (prim ids are tc-invariant in dense leaf
+    order, and refinement only prunes unhittable chunks)."""
     cfg = ComputeConfig()
-    h = get_handler("pbvh", interpret=True, tri_chunk_fine=16)
-    arrays = teatime_scene.pack()
-    coarse, arr2 = h.build(teatime_scene, arrays)
-    assert isinstance(coarse, DualTriChunks)
-    fine16 = build_tri_chunks(
-        arr2.pa, arr2.pb, arr2.pc, max_chunks=None, tri_chunk=16
-    )
-    dual = DualTriChunks(
-        coarse=split_chunks(coarse.coarse, max_seg_tris=1024),
-        fine=split_chunks(fine16, max_seg_tris=1024),
-    )
-    assert isinstance(dual.coarse, SegmentedTriChunks)
-    # Segmented dual tables never take the rows path by default (rows
-    # LOSE on segmented scenes, PERF.md round 3) but keep the coarse
-    # table's any-hit/rows entries available.
-    assert h.rows_default(dual, 10**9) is False
+    h = get_handler("pbvh", tri_chunk_fine=16)
+    dual, arr2 = h.build(base_scene, base_scene.pack())
+    assert isinstance(dual, DualTriChunks)
+    assert isinstance(dual.fine, TriChunks) and dual.fine.tri_chunk == 16
+    assert h.stats(dual).size > get_handler("pbvh").stats(dual.coarse).size
     tiso = h.intersect_tiled_fn(dual, arr2, cfg)
-    assert tiso.supports_refine
+    ah = h.intersect_tiled_anyhit_fn(dual, arr2, cfg)
+    assert tiso.supports_refine and ah.supports_refine
 
     rng = np.random.default_rng(7)
-    t_tiles, r = 32, 256
-    payload = jnp.concatenate(
-        [
-            jnp.asarray(
-                rng.normal(size=(3, t_tiles, r), scale=5.0), jnp.float32
-            ),
-            jnp.asarray(rng.normal(size=(3, t_tiles, r)), jnp.float32),
-            jnp.zeros((2, t_tiles, r), jnp.float32),
-        ]
-    )
-    valid = jnp.asarray(rng.random((t_tiles, r)) > 0.3)
-    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
-              interpret=True)
+    payload, valid = _rand_payload(rng)
+    payload = payload.at[7].set(30.0)  # any-hit occlusion bound
+    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps)
     v = np.asarray(valid)
     for refine, tbl in ((False, dual.coarse), (True, dual.fine)):
-        t0, i0 = packet_closest_hit_segmented_tiled(
-            tbl, payload, valid, refine=refine, **kw
-        )
+        t0, i0 = packet_closest_hit_tiled(tbl, payload, valid, refine=refine, **kw)
         t1, i1 = tiso(payload, valid, refine=refine)
         np.testing.assert_array_equal(np.asarray(t1)[v], np.asarray(t0)[v])
         np.testing.assert_array_equal(np.asarray(i1)[v], np.asarray(i0)[v])
-
-    # Any-hit rides the same refine-keyed dual dispatch.
-    ah = h.intersect_tiled_anyhit_fn(dual, arr2, cfg)
-    assert ah.supports_refine
-    for refine, tbl in ((False, dual.coarse), (True, dual.fine)):
-        b0 = packet_closest_hit_segmented_tiled(
+        b0 = packet_closest_hit_tiled(
             tbl, payload, valid, any_hit=True, refine=refine, **kw
         )
         b1 = ah(payload, valid, refine=refine)
         np.testing.assert_array_equal(np.asarray(b1)[v], np.asarray(b0)[v])
 
 
-def test_dual_tables_segmented_build():
-    """A beyond-VMEM scene built with tri_chunk_fine pre-slices BOTH
-    granularities into segments (fine ones at full plain-table size —
-    no attr tables)."""
-    from rt_rs_tpu.ops.pallas.packet_trace import (
-        DualTriChunks,
-        SegmentedTriChunks,
+def test_pbvh_dual_tables_bit_exact(base_scene):
+    """Dual-granularity tables must not change a single pixel."""
+    np.testing.assert_array_equal(
+        _frame(base_scene, "pbvh", tri_chunk_fine=16),
+        _frame(base_scene, "pbvh"),
     )
-    from tests.test_stream import _soup
-
-    rng = np.random.default_rng(52)
-    scene = _soup(rng, 16000, scale=20.0)
-    h = get_handler("pbvh", interpret=True, tri_chunk_fine=16)
-    accel, _ = h.build(scene, scene.pack())
-    assert isinstance(accel, DualTriChunks)
-    assert isinstance(accel.coarse, SegmentedTriChunks)
-    assert isinstance(accel.fine, SegmentedTriChunks)
-    assert all(s.attr_t is not None for s in accel.coarse.segments)
-    assert all(s.attr_t is None for s in accel.fine.segments)
-    # Footprint stats account for every segment of both tables.
-    assert h.stats(accel).size > h.stats(accel.coarse).size
 
 
-def test_pbvh_dual_tables_bit_exact(default_scene):
-    """Dual-granularity tables (coarse for primaries, fine for refine
-    batches — DualTriChunks) must not change a single pixel on either
-    the gather or the rows+any-hit path: prim ids are tc-invariant in
-    dense leaf order and the per-(tri, ray) arithmetic is identical."""
-    cfg = Config(resolution=Resolution.sized(48, 32))
-    for force_rows in (None, True):
-        f0 = np.asarray(
-            Renderer(
-                default_scene, config=cfg, handler="pbvh",
-                force_rows=force_rows,
-                handler_kwargs=dict(interpret=True),
-            ).render_frame()
-        )
-        f1 = np.asarray(
-            Renderer(
-                default_scene, config=cfg, handler="pbvh",
-                force_rows=force_rows,
-                handler_kwargs=dict(interpret=True, tri_chunk_fine=16),
-            ).render_frame()
-        )
-        np.testing.assert_array_equal(f1, f0)
-
-
-def test_nonfinite_shade_table_falls_back_to_gather(scenes_dir):
-    """Degenerate geometry regression (round 3): an OBJ face with zero
-    area imports with NaN smooth normals (reference parity — v3.rs
-    normalize divides by a zero magnitude).  The emit-rows matmul would
-    spread that NaN to EVERY ray of every tile sweeping the chunk
-    (NaN * 0 = NaN), so a non-finite shade table must drop the attr
-    table and keep the scene on the gather path, where NaN reaches only
-    pixels that actually hit the degenerate prim (cessna showed this
-    wholesale at 130/7447 NaN prims)."""
-    scene = Scene.load(str(scenes_dir / "default.json"))
-    scene.vert_norm = scene.vert_norm.copy()
-    scene.vert_norm[0] = np.nan  # the degenerate-face import outcome
-
-    h = get_handler("pbvh", interpret=True)
-    arrays = scene.pack()
-    accel, arrays2 = h.build(scene, arrays)
-    assert accel.attr_t is None  # gather fallback at build
-    assert h.intersect_tiled_rows_fn(accel, arrays2, ComputeConfig()) is None
-
+def test_nonfinite_normals_stay_local(base_scene):
+    """Degenerate geometry imports with NaN smooth normals (reference
+    parity — v3.rs normalize divides by a zero magnitude).  NaN must
+    reach exactly the pixels the naive path puts it on, not whole
+    tiles."""
+    scene = base_scene.__class__(**vars(base_scene))
+    scene.vert_norm = base_scene.vert_norm.copy()
+    scene.vert_norm[4] = np.nan  # a vertex of the first torus
     cfg = Config(
-        compute=ComputeConfig(bounces=2),
-        resolution=Resolution.sized(48, 32),
+        compute=ComputeConfig(bounces=2), resolution=Resolution.sized(48, 32)
     )
-    f_p = np.asarray(
-        Renderer(scene, config=cfg, handler="pbvh").render_frame()
-    )
-    f_n = np.asarray(
-        Renderer(scene, config=cfg, handler="naive").render_frame()
-    )
-    # equal_nan: NaN must appear at exactly the naive path's pixels.
+    f_p = _frame(scene, "pbvh", cfg=cfg)
+    f_n = _frame(scene, "naive", cfg=cfg)
+    # assert_allclose treats NaN as equal only where both are NaN.
     np.testing.assert_allclose(f_p, f_n, atol=1e-5)
-    # ...and the frame is not NaN-poisoned wholesale.
     assert np.nan_to_num(f_p).sum() > 0
-
-
-def test_early_exit_bit_exact(teatime_scene):
-    """early_exit (front-to-back sorted lists + in-loop worst-bound
-    skip, round 5) must be BIT-exact vs the default path: skipped
-    chunks satisfy t >= entry > best for every ray, and the
-    lexicographic tie-break reproduces the ascending scan's equal-t
-    winner.  Checked at the kernel level on random rays (closest,
-    rows, and the refine branch)."""
-    from rt_rs_tpu.ops.pallas.packet_trace import packet_closest_hit_tiled
-
-    cfg = ComputeConfig()
-    h = get_handler("pbvh", interpret=True)
-    accel, _ = h.build(teatime_scene, teatime_scene.pack())
-    rng = np.random.default_rng(11)
-    t_tiles, r = 32, 256
-    o = rng.normal(size=(3, t_tiles, r), scale=5.0).astype(np.float32)
-    d = rng.normal(size=(3, t_tiles, r)).astype(np.float32)
-    payload = jnp.concatenate(
-        [
-            jnp.asarray(o),
-            jnp.asarray(d),
-            jnp.zeros((2, t_tiles, r), jnp.float32),
-        ]
-    )
-    valid = jnp.asarray(rng.random((t_tiles, r)) > 0.3)
-    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps,
-              interpret=True)
-    v = np.asarray(valid)
-    for extra in ({}, {"refine": True}, {"emit_rows": True}):
-        base = packet_closest_hit_tiled(
-            accel, payload, valid, **kw, **extra
-        )
-        fast = packet_closest_hit_tiled(
-            accel, payload, valid, early_exit=True, **kw, **extra
-        )
-        for a, b in zip(base, fast):
-            a, b = np.asarray(a), np.asarray(b)
-            if a.ndim == 3:  # rows [32, T, r]
-                np.testing.assert_array_equal(b[:, v], a[:, v])
-            else:
-                np.testing.assert_array_equal(b[v], a[v])
-
-
-def test_early_exit_render_equal(teatime_scene):
-    """Full jitted frames with the early_exit handler knob agree with
-    the default (same tolerance class as the refine knob: the extra
-    prelude ops shift XLA fusion boundaries in surrounding glue)."""
-    res = Config(resolution=Resolution.sized(96, 64))
-    base = Renderer(
-        teatime_scene, config=res, handler="pbvh",
-        handler_kwargs=dict(interpret=True),
-    )
-    fast = Renderer(
-        teatime_scene, config=res, handler="pbvh",
-        handler_kwargs=dict(interpret=True, early_exit=True),
-    )
-    np.testing.assert_allclose(
-        np.asarray(fast.render_frame()),
-        np.asarray(base.render_frame()),
-        rtol=1e-5, atol=1e-6,
-    )

@@ -5,7 +5,6 @@ import pytest
 
 from rt_rs_tpu.config import ComputeConfig, Config, Resolution
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
 from .oracle import FastOracle, Oracle
 
@@ -13,8 +12,9 @@ W, H = 32, 24
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(small_scene):
+    """The generated 50-triangle scene."""
+    return small_scene
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +44,7 @@ def test_naive_render_matches_oracle(default_scene, oracle_image):
 def test_fast_oracle_matches_scalar(default_scene, oracle_image):
     """FastOracle (prim-vectorized) carries the scalar oracle's
     authority to scenes where the per-prim Python loop is too slow
-    (teatime below).  Contract: identical hit selection on random rays;
+    (the base scene below).  Contract: identical hit selection on random rays;
     t and the rendered image within a few ULP (BLAS FMA contraction in
     ``np.dot`` — see the FastOracle docstring)."""
     cfg = ComputeConfig()
@@ -65,11 +65,12 @@ def test_fast_oracle_matches_scalar(default_scene, oracle_image):
     assert np.abs(img - oracle_image).max() < 1e-6
 
 
-def test_naive_matches_oracle_teatime_64x64(scenes_dir):
-    """Oracle-vs-naive on real geometry (teatime: 6,320 prims, 2 lights,
-    shadow rays + bounces) at 64x64 — the full-fidelity semantic gate
-    the 32x24 default-scene check can't provide (VERDICT round 1 #8)."""
-    scene = Scene.load(str(scenes_dir / "teatime.json"))
+def test_naive_matches_oracle_teatime_64x64(base_scene):
+    """Oracle-vs-naive on study-scale geometry (the generated base
+    scene: 6,320 prims, 2 lights, shadow rays + bounces) at 64x64 — the
+    full-fidelity semantic gate the 32x24 small-scene check can't
+    provide."""
+    scene = base_scene
     cfg = ComputeConfig()
     oracle_img = FastOracle(scene, cfg).render(
         64, 64, scene.camera.pos, scene.camera.at

@@ -1,10 +1,8 @@
 """Between-bounce live-tile compaction (shade.trace_tiled retile=).
 
-Whole tiles move, so every per-tile cull set is identical and eager
-(interpret-mode) frames must be BIT-exact vs retile=False, on both the
-kernel-rows and gather paths.  (On compiled TPU the permutation shifts
-XLA fusion boundaries -> ~1 ULP, same class as the refine knob; gated
-by tools/tpu_check.)
+Whole tiles move, so every per-tile cull set is identical and frames
+must match retile=False, on both the any-hit path (pbvh) and the
+shared closest-hit path (naive, no any-hit entry).
 """
 
 import numpy as np
@@ -12,40 +10,34 @@ import pytest
 
 from rt_rs_tpu.config import Config, Resolution
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
 
 @pytest.fixture(scope="module")
-def teatime(scenes_dir):
-    scene = Scene.load(str(scenes_dir / "teatime.json"))
+def teatime(base_scene):
+    scene = base_scene.__class__(**vars(base_scene))
     scene.camera = scene.camera.orbited(25.0)  # side-on (divergent bounces)
     return scene
 
 
-@pytest.mark.parametrize("force_rows", [True, False])
-def test_retile_bit_exact(teatime, force_rows):
-    kw = dict(
-        config=Config(resolution=Resolution.sized(64, 48)),
-        handler="pbvh",
-        force_rows=force_rows,
+def _frame(scene, **kw):
+    return np.asarray(
+        Renderer(
+            scene, config=Config(resolution=Resolution.sized(64, 48)), **kw
+        ).render_frame(block=False)
     )
-    base = np.asarray(
-        Renderer(teatime, retile=False, **kw).render_frame(block=False)
-    )
-    rt = np.asarray(
-        Renderer(teatime, retile=True, **kw).render_frame(block=False)
-    )
+
+
+@pytest.mark.parametrize("anyhit", [True, False])
+def test_retile_bit_exact(teatime, anyhit):
+    handler = "pbvh" if anyhit else "naive"
+    base = _frame(teatime, handler=handler, retile=False)
+    rt = _frame(teatime, handler=handler, retile=True)
     assert base.any(), "all-black frame"
-    np.testing.assert_array_equal(rt, base)
+    np.testing.assert_allclose(rt, base, atol=1e-6)
 
 
-def test_retile_rejects_fuse_bounce(teatime):
-    r = Renderer(
-        teatime,
-        config=Config(resolution=Resolution.sized(64, 48)),
-        handler="pbvh",
-        retile=True,
-        fuse_bounce=True,
-    )
-    with pytest.raises(ValueError, match="fuse_bounce"):
-        r.render_frame(block=False)
+def test_retile_with_narrow(teatime):
+    """Compaction and tile narrowing compose."""
+    base = _frame(teatime, handler="pbvh")
+    both = _frame(teatime, handler="pbvh", retile=True, narrow=128)
+    np.testing.assert_allclose(both, base, atol=1e-6)

@@ -21,12 +21,20 @@ from rt_rs_tpu.scene import Scene
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(small_scene):
+    """The generated 50-triangle scene."""
+    return small_scene
 
 
 @pytest.fixture(scope="module")
-def teatime_scene(scenes_dir):
+def teatime_scene(base_scene):
+    """The generated study-scale scene (6,320 triangles)."""
+    return base_scene
+
+
+@pytest.fixture(scope="module")
+def reference_teatime(scenes_dir):
+    """The reference's own teatime.json (``reference`` tests only)."""
     return Scene.load(str(scenes_dir / "teatime.json"))
 
 
@@ -97,13 +105,13 @@ def test_rf_limits():
             pack_rf(data)
 
 
-def _compare(scene, rays=128, seed=11):
+def _compare(scene, rays=128, seed=11, backend="threaded"):
     cfg = ComputeConfig()
     arrays = scene.pack()
     naive = get_handler("naive")
     _, na = naive.build(scene, arrays)
     naive_fn = naive.intersect_fn(None, na, cfg)
-    h = get_handler("rf_bvh")
+    h = get_handler("rf_bvh", backend=backend)
     accel, ha = h.build(scene, arrays)
     h_fn = h.intersect_fn(accel, ha, cfg)
 
@@ -117,12 +125,18 @@ def _compare(scene, rays=128, seed=11):
     t0, id0 = naive_fn(jnp.asarray(o), jnp.asarray(d), excl, ones)
     t1, id1 = h_fn(jnp.asarray(o), jnp.asarray(d), excl, ones)
     np.testing.assert_allclose(np.asarray(t1), np.asarray(t0), rtol=1e-5)
-    # RF does not reorder prims, so ids must agree exactly on hits.
-    np.testing.assert_array_equal(np.asarray(id1), np.asarray(id0))
+    if backend == "threaded":
+        # RF does not reorder prims, so ids must agree exactly on hits.
+        np.testing.assert_array_equal(np.asarray(id1), np.asarray(id0))
+    else:
+        # The packet backend answers in leaf order: map back.
+        perm = np.concatenate([[0], np.asarray(h.bvh_data.indices) + 1])
+        np.testing.assert_array_equal(perm[np.asarray(id1)], np.asarray(id0))
 
 
-def test_rf_matches_naive_default(default_scene):
-    _compare(default_scene)
+@pytest.mark.parametrize("backend", ["threaded", "packet"])
+def test_rf_matches_naive_default(default_scene, backend):
+    _compare(default_scene, backend=backend)
 
 
 def test_rf_matches_naive_teatime(teatime_scene):
@@ -169,31 +183,32 @@ def test_rf_packet_backend_matches_threaded(teatime_scene):
     assert (np.asarray(i2)[hits] != np.asarray(i1)[hits]).all()
 
 
-def test_rf_footprint_matches_published(teatime_scene):
+@pytest.mark.reference
+def test_rf_footprint_matches_published(reference_teatime):
     """The study's memory table (pdf p.19 §4.1 Fig. 8): teatime BVH
     +381,840 B, RF-BVH +110,528 B.  Our builds reproduce both exactly
     (48 B x 7,955 nodes at target=2; 16 B x 6,908 records at
     target=4)."""
     bvh = get_handler("bvh")  # defaults: eps=0.02, target=2
     rf = get_handler("rf_bvh")  # defaults: eps=0.02, target=4
-    arrays = teatime_scene.pack()
-    a_bvh, _ = bvh.build(teatime_scene, arrays)
-    a_rf, _ = rf.build(teatime_scene, arrays)
+    arrays = reference_teatime.pack()
+    a_bvh, _ = bvh.build(reference_teatime, arrays)
+    a_rf, _ = rf.build(reference_teatime, arrays)
     assert bvh.stats(a_bvh).size == 381840
     assert rf.stats(a_rf).size == 110528
 
 
-def test_rf_packet_render_matches_naive(default_scene):
+def test_rf_packet_render_matches_naive(teatime_scene):
     """Full render through the rf_bvh handler's PACKET backend (tiled +
     per-ray refine tags) must match naive."""
     cfg = Config(resolution=Resolution.sized(48, 32))
     f_naive = np.asarray(
-        Renderer(default_scene, config=cfg, handler="naive").render_frame()
+        Renderer(teatime_scene, config=cfg, handler="naive").render_frame()
     )
     for refine in ("bounces", "off"):
         f_p = np.asarray(
             Renderer(
-                default_scene, config=cfg, handler="rf_bvh",
+                teatime_scene, config=cfg, handler="rf_bvh",
                 handler_kwargs=dict(backend="packet", refine=refine),
             ).render_frame()
         )

@@ -17,6 +17,8 @@ from rt_rs_tpu.scene.obj import load_obj
 
 W, H = 32, 24
 
+pytestmark = pytest.mark.reference
+
 
 def _mesh_scene(meshes_dir, name, camera_pos, bounces_lights=True):
     scene = Scene.empty(
@@ -60,8 +62,8 @@ def test_handlers_agree(meshes_dir, mesh, campos, bounces):
     for handler, kwargs in [
         ("bvh", {}),
         ("rf_bvh", {}),
-        ("pbvh", {"interpret": True}),
-        ("lbvh", {"interpret": True}),
+        ("pbvh", {}),
+        ("lbvh", {}),
     ]:
         try:
             got = np.asarray(

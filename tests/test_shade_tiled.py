@@ -1,5 +1,6 @@
-"""Tiled frame path (component-major ray tiles + fused Pallas shading)
-vs the XLA reference bounce loop — same math, ~1 ULP drift allowed."""
+"""Tiled frame path (component-major ray tiles + jnp shading) vs the XLA
+reference bounce loop, on the generated base scene — same math, ~1 ULP
+drift allowed."""
 
 import dataclasses
 
@@ -10,407 +11,207 @@ import pytest
 from rt_rs_tpu.config import ComputeConfig, Config, Resolution
 from rt_rs_tpu.handlers import get_handler
 from rt_rs_tpu.ops import shade
+from rt_rs_tpu.ops.shade_tile import shade_post, shade_pre
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
 
 @pytest.fixture(scope="module")
-def teatime(scenes_dir):
-    return Scene.load(str(scenes_dir / "teatime.json"))
+def pbvh_built(base_scene):
+    h = get_handler("pbvh")
+    accel, arr2 = h.build(base_scene, base_scene.pack())
+    return h, accel, arr2
+
+
+def _camera(scene):
+    return (
+        jnp.asarray(scene.camera.pos, jnp.float32),
+        jnp.asarray(scene.camera.at, jnp.float32),
+    )
 
 
 def _both_renders(scene, handler_name, cfg, W, H, block, ray_tile=128):
     arrays = scene.pack()
     h = get_handler(handler_name)
     accel, arr2 = h.build(scene, arrays)
-    pos = jnp.asarray(scene.camera.pos, jnp.float32)
-    at = jnp.asarray(scene.camera.at, jnp.float32)
+    pos, at = _camera(scene)
     old = shade.render(
         arr2, h.intersect_fn(accel, arr2, cfg), cfg, pos, at, W, H,
         block=block,
     )
     new = shade.render_tiled(
         arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at, W, H,
-        ray_tile=ray_tile, block=block, interpret=True,
+        ray_tile=ray_tile, block=block,
     )
     return np.asarray(old), np.asarray(new)
 
 
-def test_tiled_matches_reference_default(scenes_dir):
-    scene = Scene.load(str(scenes_dir / "default.json"))
-    old, new = _both_renders(scene, "naive", ComputeConfig(), 32, 24, (8, 16))
-    np.testing.assert_allclose(new, old, atol=2e-6)
+def _tiled(scene, built, cfg, **kw):
+    h, accel, arr2 = built
+    pos, at = _camera(scene)
+    return np.asarray(
+        shade.render_tiled(
+            arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
+            48, 32, ray_tile=128, block=(8, 16), **kw,
+        )
+    )
 
 
-def test_tiled_matches_reference_teatime_full_fidelity(teatime):
-    # 4 bounces, 2 shadow-rayed lights, real geometry, packet backend.
+def test_tiled_matches_reference_default(base_scene):
     old, new = _both_renders(
-        teatime, "pbvh", ComputeConfig(), 48, 32, (8, 16)
+        base_scene, "naive", ComputeConfig(), 32, 24, (8, 16)
+    )
+    np.testing.assert_allclose(new, old, atol=2e-6)
+
+
+def test_tiled_matches_reference_full_fidelity(base_scene):
+    # 4 bounces, 2 shadow-rayed lights, packet backend.
+    old, new = _both_renders(
+        base_scene, "pbvh", ComputeConfig(), 48, 32, (8, 16)
     )
     np.testing.assert_allclose(new, old, atol=2e-5)
 
 
-def test_tiled_headlight(teatime):
+def test_tiled_headlight(base_scene):
     cfg = dataclasses.replace(ComputeConfig(), camera_light_source=1.5)
-    old, new = _both_renders(teatime, "naive", cfg, 32, 16, (8, 16))
+    old, new = _both_renders(base_scene, "naive", cfg, 32, 16, (8, 16))
     np.testing.assert_allclose(new, old, atol=2e-5)
 
 
-def test_tiled_no_block_raster_order(scenes_dir):
-    scene = Scene.load(str(scenes_dir / "default.json"))
-    old, new = _both_renders(scene, "naive", ComputeConfig(), 40, 24, None)
+def test_tiled_no_block_raster_order(base_scene):
+    old, new = _both_renders(base_scene, "naive", ComputeConfig(), 40, 24, None)
     np.testing.assert_allclose(new, old, atol=2e-6)
 
 
-def test_tiled_odd_size_padding(scenes_dir):
+def test_tiled_odd_size_padding(base_scene):
     # Sizes that don't divide the block or tile: padding + crop parity.
-    scene = Scene.load(str(scenes_dir / "default.json"))
-    old, new = _both_renders(scene, "naive", ComputeConfig(), 37, 23, (8, 16))
+    old, new = _both_renders(base_scene, "naive", ComputeConfig(), 37, 23, (8, 16))
     np.testing.assert_allclose(new, old, atol=2e-6)
 
 
-def test_tiled_segmented_matches_resident(teatime):
-    """Tiled segmented traversal (pid_base global ids) == resident."""
-    from rt_rs_tpu.ops.pallas.packet_trace import (
-        build_tri_chunks,
-        packet_closest_hit_segmented_tiled,
-        packet_closest_hit_tiled,
-        split_chunks,
-    )
+@pytest.mark.parametrize("bounces", [1, 2])
+def test_tiled_few_bounces(base_scene, bounces):
+    """bounces=1 (no continuation ray) and bounces=2 agree with the XLA
+    reference — the one-bounce case checks the jnp shading against
+    shade.trace directly."""
+    cfg = dataclasses.replace(ComputeConfig(), bounces=bounces)
+    old, new = _both_renders(base_scene, "pbvh", cfg, 48, 32, (8, 16))
+    np.testing.assert_allclose(new, old, atol=2e-5)
 
+
+def test_anyhit_shadow_matches_closest(base_scene, pbvh_built):
+    """Any-hit shadow verdicts (occlusion bound in payload row 7) give
+    the identical image: min(t) < d iff any t < d."""
+    h, accel, arr2 = pbvh_built
     cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh")
-    accel, arr2 = h.build(teatime, arrays)
-    chunks = build_tri_chunks(arr2.pa, arr2.pb, arr2.pc, tri_chunk=8)
-    seg = split_chunks(chunks, max_seg_tris=2048)
-    assert len(seg.segments) > 1
-
-    payload, valid, _ = shade.camera_ray_tiles(
-        jnp.asarray(teatime.camera.pos, jnp.float32),
-        jnp.asarray(teatime.camera.at, jnp.float32),
-        64, 32, ray_tile=128, block=(8, 16),
-    )
-    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, interpret=True)
-    t0, i0 = packet_closest_hit_tiled(chunks, payload, valid, **kw)
-    t1, i1 = packet_closest_hit_segmented_tiled(seg, payload, valid, **kw)
-    v = np.asarray(valid)
-    np.testing.assert_allclose(
-        np.asarray(t1)[v], np.asarray(t0)[v], rtol=1e-6
-    )
-    np.testing.assert_array_equal(np.asarray(i1)[v], np.asarray(i0)[v])
-
-
-def test_kernel_row_emission_matches_gather(teatime):
-    """The kernel's attribute second pass (match-matmul against the
-    attr table) must reproduce the XLA shade-table row gather
-    BIT-exactly (every product is attr*1 or attr*0)."""
-    cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh", interpret=True)
-    accel, arr2 = h.build(teatime, arrays)
-    rows_fn = h.intersect_tiled_rows_fn(accel, arr2, cfg)
-    assert rows_fn is not None
-    payload, valid, _ = shade.camera_ray_tiles(
-        jnp.asarray(teatime.camera.pos, jnp.float32),
-        jnp.asarray(teatime.camera.at, jnp.float32),
-        64, 32, ray_tile=128, block=(8, 16),
-    )
-    t, pid, rows = rows_fn(payload, valid)
-    t_tiles, r = valid.shape
-    gathered = (
-        arr2.shade_table[pid.reshape(-1)].T.reshape(32, t_tiles, r)
-    )
-    # Hit rays must match bit-exactly.  Miss rays differ by design:
-    # the kernel emits all-zero rows while a gather of sentinel row 0
-    # returns material-0 colors with flag -1 — every consumed field is
-    # masked by validity either way (see trace_tiled).
-    hit = np.asarray(valid & (pid != 0))[None].repeat(32, axis=0)
     np.testing.assert_array_equal(
-        np.asarray(rows)[hit], np.asarray(gathered)[hit]
-    )
-    assert (np.asarray(rows)[:, np.asarray(valid & (pid == 0))] == 0).all()
-
-
-def test_tiled_rows_path_matches_gather_path(teatime):
-    """Full render through the split-call rows path == the fused
-    gather path (pbvh interpret)."""
-    cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh", interpret=True)
-    accel, arr2 = h.build(teatime, arrays)
-    pos = jnp.asarray(teatime.camera.pos, jnp.float32)
-    at = jnp.asarray(teatime.camera.at, jnp.float32)
-    base = shade.render_tiled(
-        arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-        48, 32, ray_tile=128, block=(8, 16), interpret=True,
-    )
-    rows = shade.render_tiled(
-        arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-        48, 32, ray_tile=128, block=(8, 16), interpret=True,
-        intersect_rows_fn=h.intersect_tiled_rows_fn(accel, arr2, cfg),
-    )
-    np.testing.assert_allclose(
-        np.asarray(rows), np.asarray(base), atol=2e-6
+        _tiled(
+            base_scene, pbvh_built, cfg,
+            intersect_anyhit_fn=h.intersect_tiled_anyhit_fn(accel, arr2, cfg),
+        ),
+        _tiled(base_scene, pbvh_built, cfg),
     )
 
 
-def test_anyhit_shadow_matches_closest(teatime):
-    """Any-hit shadow verdicts (blocked-bool kernel, occlusion bound in
-    payload row 7) must give the identical image: min(t) < d iff any
-    t < d, so the predicate is exactly equivalent."""
-    cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh", interpret=True)
-    accel, arr2 = h.build(teatime, arrays)
-    pos = jnp.asarray(teatime.camera.pos, jnp.float32)
-    at = jnp.asarray(teatime.camera.at, jnp.float32)
-    rows_fn = h.intersect_tiled_rows_fn(accel, arr2, cfg)
-    base = shade.render_tiled(
-        arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-        48, 32, ray_tile=128, block=(8, 16), interpret=True,
-        intersect_rows_fn=rows_fn,
-    )
-    anyhit = shade.render_tiled(
-        arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-        48, 32, ray_tile=128, block=(8, 16), interpret=True,
-        intersect_rows_fn=rows_fn,
-        intersect_anyhit_fn=h.intersect_tiled_anyhit_fn(accel, arr2, cfg),
-    )
-    np.testing.assert_array_equal(np.asarray(anyhit), np.asarray(base))
-
-
-def test_renderer_uses_tiled_path(scenes_dir):
+def test_renderer_uses_tiled_path(base_scene):
     """End-to-end Renderer equality across a handler with a native tiled
     entry and one using the AoS adapter."""
-    scene = Scene.load(str(scenes_dir / "default.json"))
     cfg = Config(resolution=Resolution.sized(48, 32))
     f_naive = np.asarray(
-        Renderer(scene, config=cfg, handler="naive").render_frame()
+        Renderer(base_scene, config=cfg, handler="naive").render_frame()
     )
     f_pbvh = np.asarray(
-        Renderer(
-            scene, config=cfg, handler="pbvh",
-            handler_kwargs={"interpret": True},
-        ).render_frame()
+        Renderer(base_scene, config=cfg, handler="pbvh").render_frame()
     )
     np.testing.assert_allclose(f_pbvh, f_naive, atol=1e-5)
 
 
-def test_segmented_rows_and_anyhit_match_resident(teatime):
-    """Round-3: segmented tables support emit_rows (min-t winner
-    select) and any_hit (OR-merge) — bit-equal to the resident kernel
-    (VERDICT round-2 item 3)."""
-    from rt_rs_tpu.ops.pallas.packet_trace import (
-        build_tri_chunks,
-        packet_closest_hit_segmented_tiled,
-        packet_closest_hit_tiled,
-        split_chunks,
-    )
-
-    cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh")
-    accel, arr2 = h.build(teatime, arrays)
-    chunks = build_tri_chunks(
-        arr2.pa, arr2.pb, arr2.pc, tri_chunk=8,
-        shade_rows=np.asarray(arr2.shade_table),
-    )
-    seg = split_chunks(chunks, max_seg_tris=2048)
-    assert len(seg.segments) > 1
-    assert all(s.attr_t is not None for s in seg.segments)
-
-    payload, valid, _ = shade.camera_ray_tiles(
-        jnp.asarray(teatime.camera.pos, jnp.float32),
-        jnp.asarray(teatime.camera.at, jnp.float32),
-        64, 32, ray_tile=128, block=(8, 16),
-    )
-    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, eps=cfg.eps, interpret=True)
-    t0, i0, r0 = packet_closest_hit_tiled(
-        chunks, payload, valid, emit_rows=True, **kw
-    )
-    t1, i1, r1 = packet_closest_hit_segmented_tiled(
-        seg, payload, valid, emit_rows=True, **kw
-    )
-    v = np.asarray(valid)
-    np.testing.assert_allclose(np.asarray(t1)[v], np.asarray(t0)[v], rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(i1)[v], np.asarray(i0)[v])
-    vm = v[None].repeat(32, axis=0)
-    np.testing.assert_array_equal(np.asarray(r1)[vm], np.asarray(r0)[vm])
-
-    # Any-hit: occlusion bound in payload row 7.
-    import jax.numpy as _jnp
-
-    cap = _jnp.full(valid.shape, 6.0, _jnp.float32)
-    pay_cap = payload.at[7].set(cap)
-    b0 = packet_closest_hit_tiled(chunks, pay_cap, valid, any_hit=True, **kw)
-    b1 = packet_closest_hit_segmented_tiled(
-        seg, pay_cap, valid, any_hit=True, **kw
-    )
-    np.testing.assert_array_equal(np.asarray(b1)[v], np.asarray(b0)[v])
-
-    # chain=False (independent per-segment calls, the round-3-pre
-    # behavior) must agree with the chained default — the cap/validity
-    # threading is a pure cull.
-    t2, i2 = packet_closest_hit_segmented_tiled(
-        seg, payload, valid, chain=False, **kw
-    )
-    np.testing.assert_allclose(np.asarray(t2)[v], np.asarray(t1)[v], rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(i2)[v], np.asarray(i1)[v])
-    b2 = packet_closest_hit_segmented_tiled(
-        seg, pay_cap, valid, any_hit=True, chain=False, **kw
-    )
-    np.testing.assert_array_equal(np.asarray(b2)[v], np.asarray(b1)[v])
-
-
-def test_segmented_render_rows_path(teatime):
-    """Full Renderer frame on a segmented build with force_rows: the
-    segmented rows/any-hit branch == the gather branch."""
-    from rt_rs_tpu.ops.pallas.packet_trace import SegmentedTriChunks
-
-    cfg = Config(resolution=Resolution.sized(48, 32))
-    # Tiny tri_chunk + a pbvh with a forced-small VMEM budget is not
-    # available through the handler API; instead monkey-build: use the
-    # handler but re-split its chunks small.
-    base_r = Renderer(
-        teatime, config=cfg, handler="pbvh",
-        handler_kwargs={"interpret": True},
-    )
-    from rt_rs_tpu.ops.pallas.packet_trace import split_chunks
-
-    seg = split_chunks(base_r.accel, max_seg_tris=2048)
-    assert isinstance(seg, SegmentedTriChunks) and len(seg.segments) > 1
-    ref = np.asarray(base_r.render_frame())
-
-    seg_r = Renderer(
-        teatime, config=cfg, handler="pbvh",
-        handler_kwargs={"interpret": True}, force_rows=True,
-    )
-    seg_r.accel = seg
-    np.testing.assert_allclose(
-        np.asarray(seg_r.render_frame()), ref, atol=2e-6
-    )
-
-
-def test_segmented_rows_default_off(teatime):
-    """Segmented tables default to the gather path at EVERY size (the
-    per-segment rows emission measured slower on TPU regardless of
-    pixel count — PERF.md round 3); resident tables default to rows at
-    every size (round-3 re-sweep: rows match or win from 384x288 up).
-    force_rows still overrides both."""
-    from rt_rs_tpu.handlers import get_handler as gh
-    from rt_rs_tpu.ops.pallas.packet_trace import split_chunks
-
-    h = gh("pbvh", interpret=True)
-    accel, _ = h.build(teatime, teatime.pack())
-    seg = split_chunks(accel, max_seg_tris=2048)
-    assert h.rows_default(accel, 2_073_600) is True
-    assert h.rows_default(accel, 110_592) is True
-    assert h.rows_default(seg, 2_073_600) is False
-    assert h.rows_default(seg, 110_592) is False
-
-
-def test_fused_bounce_kernel_matches_unfused(teatime):
-    """shade_bounce (post(b) + pre(b+1) in one kernel) must reproduce
-    the two-kernel path exactly — same subgroup bodies, one launch
-    (round-3 fixed-cost attack)."""
-    cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh", interpret=True)
-    accel, arr2 = h.build(teatime, arrays)
-    pos = jnp.asarray(teatime.camera.pos, jnp.float32)
-    at = jnp.asarray(teatime.camera.at, jnp.float32)
-    for rows_fn in (None, h.intersect_tiled_rows_fn(accel, arr2, cfg)):
-        fused = shade.render_tiled(
-            arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-            48, 32, ray_tile=128, block=(8, 16), interpret=True,
-            intersect_rows_fn=rows_fn, fuse_bounce=True,
-        )
-        unfused = shade.render_tiled(
-            arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-            48, 32, ray_tile=128, block=(8, 16), interpret=True,
-            intersect_rows_fn=rows_fn, fuse_bounce=False,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(fused), np.asarray(unfused)
-        )
-
-
-def test_fused_bounce_single_bounce(teatime):
-    """bounces=1 (no fusable pair) and bounces=2 (one pair) both agree
-    with the XLA reference."""
-    import dataclasses as _dc
-
-    for b in (1, 2):
-        cfg = _dc.replace(ComputeConfig(), bounces=b)
-        old, new = _both_renders(teatime, "pbvh", cfg, 48, 32, (8, 16))
-        np.testing.assert_allclose(new, old, atol=2e-5)
-
-
-def test_shadow_cull_bit_exact(teatime):
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_shadow_cull_bit_exact(base_scene, pbvh_built, anyhit):
     """Dropping zero-contribution shadow rays (back-facing diffuse AND
     zero specular -> the occlusion verdict is multiplied by exactly
-    zero) must not change a single pixel, on both the fused-batch
-    gather path and the rows+any-hit path."""
+    zero) must not change a single pixel, with the shared closest-hit
+    call and with the any-hit call."""
+    h, accel, arr2 = pbvh_built
     cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh", interpret=True)
-    accel, arr2 = h.build(teatime, arrays)
-    pos = jnp.asarray(teatime.camera.pos, jnp.float32)
-    at = jnp.asarray(teatime.camera.at, jnp.float32)
-    for rows_fn, anyhit_fn in (
-        (None, None),
-        (
-            h.intersect_tiled_rows_fn(accel, arr2, cfg),
-            h.intersect_tiled_anyhit_fn(accel, arr2, cfg),
-        ),
-    ):
-        culled = shade.render_tiled(
-            arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-            48, 32, ray_tile=128, block=(8, 16), interpret=True,
-            intersect_rows_fn=rows_fn, intersect_anyhit_fn=anyhit_fn,
-            shadow_cull=True,
-        )
-        full = shade.render_tiled(
-            arr2, h.intersect_tiled_fn(accel, arr2, cfg), cfg, pos, at,
-            48, 32, ray_tile=128, block=(8, 16), interpret=True,
-            intersect_rows_fn=rows_fn, intersect_anyhit_fn=anyhit_fn,
-            shadow_cull=False,
-        )
-        np.testing.assert_array_equal(np.asarray(culled), np.asarray(full))
+    kw = {}
+    if anyhit:
+        kw["intersect_anyhit_fn"] = h.intersect_tiled_anyhit_fn(accel, arr2, cfg)
+    np.testing.assert_array_equal(
+        _tiled(base_scene, pbvh_built, cfg, shadow_cull=True, **kw),
+        _tiled(base_scene, pbvh_built, cfg, shadow_cull=False, **kw),
+    )
 
 
-def test_shadow_cull_culls_something(teatime):
-    """The contribution masks must actually drop rays on real geometry
-    (a teapot's far side back-faces each light) — guards against the
-    mask degenerating to all-ones and the cull silently dying."""
-    from rt_rs_tpu.ops.pallas.shade_tile import shade_pre
-    from rt_rs_tpu.ops.shade import camera_ray_tiles
-
+def _first_hit(scene, built):
+    h, accel, arr2 = built
     cfg = ComputeConfig()
-    arrays = teatime.pack()
-    h = get_handler("pbvh", interpret=True)
-    accel, arr2 = h.build(teatime, arrays)
-    pos = jnp.asarray(teatime.camera.pos, jnp.float32)
-    at = jnp.asarray(teatime.camera.at, jnp.float32)
-    payload, valid, _ = camera_ray_tiles(pos, at, 48, 32, 128, block=(8, 16))
+    pos, at = _camera(scene)
+    payload, valid, _ = shade.camera_ray_tiles(pos, at, 48, 32, 128, block=(8, 16))
     t, pid = h.intersect_tiled_fn(accel, arr2, cfg)(payload, valid)
     rows = arr2.shade_table[pid.reshape(-1)].T.reshape(32, *t.shape)
-    active = valid & (rows[25] != -1.0) & (t < cfg.t_max) & (t > cfg.t_min)
-    live_sg = (
-        active.reshape(t.shape[0] // 8, 8 * t.shape[1])
-        .any(axis=1)
-        .astype(jnp.int32)
-    )
+    active = valid & (pid != 0) & (t < cfg.t_max) & (t > cfg.t_min)
     lights = jnp.concatenate(
         [arr2.light_pos, arr2.light_strength[:, None]], axis=1
     ).astype(jnp.float32)
+    return cfg, payload, t, pid, rows, active, lights
+
+
+def test_shadow_cull_culls_something(base_scene, pbvh_built):
+    """The contribution masks must actually drop rays on real geometry
+    (a torus' far side back-faces each light) — guards against the
+    mask degenerating to all-ones and the cull silently dying."""
+    _, payload, t, pid, rows, active, lights = _first_hit(base_scene, pbvh_built)
     _, _, masks, _ = shade_pre(
-        rows, payload, t, pid.astype(jnp.float32), live_sg, lights,
-        emit_next=False, interpret=True,
+        rows, payload, t, pid.astype(jnp.float32), lights, emit_next=False
     )
     live = np.asarray(active)
     kept = np.asarray(jnp.stack(masks) > 0.0) & live[None]
-    n_live = live.sum() * len(masks)
-    n_kept = kept.sum()
-    assert 0 < n_kept < n_live  # some culled, not all
+    assert 0 < kept.sum() < live.sum() * len(masks)  # some culled, not all
+
+
+def test_shade_pre_matches_xla_hit(base_scene, pbvh_built):
+    """shade_pre's shadow and reflection rays are built from the same hit
+    point and normal as the XLA reference (shade._hit_from_rows)."""
+    cfg, payload, t, pid, rows, active, lights = _first_hit(
+        base_scene, pbvh_built
+    )
+    sh, caps, _, nxt = shade_pre(
+        rows, payload, t, pid.astype(jnp.float32), lights, emit_next=True
+    )
+    live = np.asarray(active).reshape(-1)
+    o = payload[0:3].reshape(3, -1).T
+    d = payload[3:6].reshape(3, -1).T
+    at, normal = shade._hit_from_rows(rows.reshape(32, -1).T, o, d, t.reshape(-1))
+    at, normal = np.asarray(at)[live], np.asarray(normal)[live]
+    for k in range(len(sh)):
+        shadow_o = np.asarray(sh[k][0:3].reshape(3, -1).T)[live]
+        # The origin is the hit point pushed 0.001 along +-normal.
+        off = np.abs(np.sum((shadow_o - at) * normal, axis=1))
+        np.testing.assert_allclose(off, 1e-3, atol=2e-5)
+        lp = np.asarray(lights[k, :3])
+        np.testing.assert_allclose(
+            np.asarray(caps[k]).reshape(-1)[live],
+            np.linalg.norm(lp - at, axis=1), rtol=1e-5,
+        )
+    refl = np.asarray(nxt[3:6].reshape(3, -1).T)[live]
+    dd = np.asarray(d)[live]
+    want = dd - 2.0 * np.sum(dd * normal, axis=1, keepdims=True) * normal
+    want /= np.linalg.norm(want, axis=1, keepdims=True)
+    np.testing.assert_allclose(refl, want, atol=2e-5)
+
+
+def test_shade_post_dead_rays_contribute_nothing(base_scene, pbvh_built):
+    """shade_post masks by ``active``: dead rays add exactly zero."""
+    cfg, payload, t, pid, rows, active, lights = _first_hit(
+        base_scene, pbvh_built
+    )
+    k = lights.shape[0]
+    zeros = jnp.zeros((k,) + t.shape, jnp.float32)
+    color = shade_post(
+        rows, payload, t, active, zeros, zeros,
+        jnp.full((k,) + t.shape, 1e3, jnp.float32), lights,
+        first_bounce=True, t_min=cfg.t_min, t_max=cfg.t_max,
+    )
+    color = np.asarray(color)
+    assert (color[:, ~np.asarray(active)] == 0.0).all()
+    assert color[:, np.asarray(active)].sum() > 0.0

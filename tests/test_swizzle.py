@@ -2,12 +2,12 @@
 
 ``shade.camera_rays(block=...)`` + ``shade.unblock_colors`` reorder the
 ray batch so each 128-ray packet tile covers a compact 2-D pixel block
-(tighter tile frusta -> cheaper chunk culling; PERF.md).  Per-ray math
+(tighter tile frusta -> cheaper chunk culling).  Per-ray math
 is op-identical — outside jit the frames match bit-for-bit — but under
 ``jax.jit`` XLA's fusion may contract mul+add chains into FMAs
 differently for the two graph shapes, so the jitted contract is
 "identical to ~1 ULP in ray directions" (measured: <= 6e-6 in final
-colors on CPU; bit-identical on TPU).  Sizes that don't divide the
+colors on CPU).  Sizes that don't divide the
 block are padded with duplicated edge rays and cropped.
 """
 
@@ -17,12 +17,12 @@ import pytest
 from rt_rs_tpu.config import Config, Resolution
 from rt_rs_tpu.ops import shade
 from rt_rs_tpu.renderer import Renderer
-from rt_rs_tpu.scene import Scene
 
 
 @pytest.fixture(scope="module")
-def default_scene(scenes_dir):
-    return Scene.load(str(scenes_dir / "default.json"))
+def default_scene(small_scene):
+    """The generated 50-triangle scene."""
+    return small_scene
 
 
 @pytest.mark.parametrize("block", [(8, 16), (16, 8), (4, 32)])
@@ -48,7 +48,7 @@ def test_block_rays_are_a_permutation(default_scene, block, size):
 
 @pytest.mark.parametrize("handler,kwargs", [
     ("naive", {}),
-    ("pbvh", {"interpret": True}),
+    ("pbvh", {}),
 ])
 def test_render_bit_identical_with_block(default_scene, handler, kwargs):
     frames = {}

@@ -10,6 +10,15 @@ from rt_rs_tpu.scene import Scene
 from rt_rs_tpu.tools import construct, load, precompute
 
 
+@pytest.fixture(scope="module")
+def scene_path(tmp_path_factory, small_scene):
+    """The generated small scene as a scene JSON file."""
+    path = tmp_path_factory.mktemp("scenes") / "small.json"
+    small_scene.save(str(path))
+    return str(path)
+
+
+@pytest.mark.reference
 def test_construct_roundtrip(tmp_path, meshes_dir):
     out = tmp_path / "scene.json"
     rc = construct.main([
@@ -30,6 +39,7 @@ def test_construct_roundtrip(tmp_path, meshes_dir):
     assert scene.light_strength[0] == pytest.approx(1.5)
 
 
+@pytest.mark.reference
 def test_construct_reproduces_teatime(tmp_path, meshes_dir, scenes_dir):
     """construct with teatime's parameters reproduces the shipped scene
     exactly (prims/verts/lights/materials/camera)."""
@@ -53,6 +63,7 @@ def test_construct_reproduces_teatime(tmp_path, meshes_dir, scenes_dir):
     assert ours == ref
 
 
+@pytest.mark.reference
 def test_precompute_matches_shipped(tmp_path, scenes_dir):
     out = tmp_path / "t.bvh.json"
     rc = precompute.main([
@@ -83,6 +94,7 @@ def test_load_handler_selection():
     assert load.pick_handler(args) == ("pbvh", {})
 
 
+@pytest.mark.reference
 def test_load_bvh_path_selection(scenes_dir):
     path = str(scenes_dir / "teatime.bvh.json")
     args = load.build_parser().parse_args(["--handler-bvh", path])
@@ -92,10 +104,10 @@ def test_load_bvh_path_selection(scenes_dir):
         load.pick_handler(args)
 
 
-def test_load_end_to_end(tmp_path, scenes_dir):
+def test_load_end_to_end(tmp_path, scene_path):
     out = tmp_path / "frame.png"
     rc = load.main([
-        "--path", str(scenes_dir / "default.json"),
+        "--path", scene_path,
         "--handler-naive",
         "--width", "32", "--height", "24",
         "--frames", "2", "--out", str(out),
@@ -109,10 +121,10 @@ def test_load_end_to_end(tmp_path, scenes_dir):
     assert img.any()
 
 
-def test_benchmark_protocol_writes_chart(tmp_path, scenes_dir, monkeypatch):
+def test_benchmark_protocol_writes_chart(tmp_path, scene_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     rc = load.main([
-        "--path", str(scenes_dir / "default.json"),
+        "--path", scene_path,
         "--handler-naive",
         "--width", "16", "--height", "16",
         "--benchmark", "--bench-frames", "20",
@@ -121,14 +133,15 @@ def test_benchmark_protocol_writes_chart(tmp_path, scenes_dir, monkeypatch):
     assert (tmp_path / "benchmark.png").exists()
 
 
-def test_load_sharded_matches_single_chip(tmp_path, scenes_dir):
-    """--bands/--shards (the multi-chip CLI surface): the sharded frame
-    equals the single-chip one bit-for-bit on the virtual CPU mesh."""
+def test_load_sharded_matches_single_chip(tmp_path, scene_path):
+    """--bands/--shards (the multi-device CLI surface): the sharded
+    frame equals the single-device one bit-for-bit on the virtual CPU
+    mesh."""
     from rt_rs_tpu.utils.image import read_png
 
     single = tmp_path / "single.png"
     rc = load.main([
-        "--path", str(scenes_dir / "default.json"),
+        "--path", scene_path,
         "--handler-pbvh",
         "--width", "64", "--height", "48",
         "--frames", "1", "--out", str(single),
@@ -136,7 +149,7 @@ def test_load_sharded_matches_single_chip(tmp_path, scenes_dir):
     assert rc == 0
     sharded = tmp_path / "sharded.png"
     rc = load.main([
-        "--path", str(scenes_dir / "default.json"),
+        "--path", scene_path,
         "--handler-pbvh",
         "--width", "64", "--height", "48",
         "--frames", "1", "--out", str(sharded),
@@ -148,14 +161,14 @@ def test_load_sharded_matches_single_chip(tmp_path, scenes_dir):
     np.testing.assert_array_equal(b, a)
 
 
-def test_load_dynamic_refit(tmp_path, scenes_dir):
+def test_load_dynamic_refit(tmp_path, scene_path):
     """--refit (BASELINE config 5 as a CLI call): per-frame refit of
     wobbled geometry renders a non-empty frame."""
     from rt_rs_tpu.utils.image import read_png
 
     out = tmp_path / "dyn.png"
     rc = load.main([
-        "--path", str(scenes_dir / "default.json"),
+        "--path", scene_path,
         "--refit",
         "--width", "32", "--height", "24",
         "--frames", "2", "--out", str(out),
@@ -166,12 +179,12 @@ def test_load_dynamic_refit(tmp_path, scenes_dir):
     assert img.any()
 
 
-def test_dynamic_benchmark_protocol(tmp_path, scenes_dir, monkeypatch):
+def test_dynamic_benchmark_protocol(tmp_path, scene_path, monkeypatch):
     """DynamicRenderer drives the study benchmark protocol (stats /
     render_frame / animate parity with Renderer)."""
     monkeypatch.chdir(tmp_path)
     rc = load.main([
-        "--path", str(scenes_dir / "default.json"),
+        "--path", scene_path,
         "--dynamic",
         "--width", "16", "--height", "16",
         "--benchmark", "--bench-frames", "10",
@@ -180,13 +193,13 @@ def test_dynamic_benchmark_protocol(tmp_path, scenes_dir, monkeypatch):
     assert (tmp_path / "benchmark.png").exists()
 
 
-def test_debug_tree_check(capsys, scenes_dir):
+def test_debug_tree_check(capsys, small_scene):
     """`debug_tree --check`: 0 violations on a healthy build; corrupted
     trees are caught (the v3-based invariant validator)."""
     from rt_rs_tpu.bvh import build_bvh
     from rt_rs_tpu.tools.debug_tree import check_tree
 
-    scene = Scene.load(str(scenes_dir / "default.json"))
+    scene = small_scene
     data = build_bvh(scene, eps=0.02, target_item_count=2)
     assert check_tree(data, scene) == 0
     out = capsys.readouterr().out
@@ -202,3 +215,41 @@ def test_debug_tree_check(capsys, scenes_dir):
     counts[leaf] -= 1
     bad = dataclasses.replace(data, item_count=counts)
     assert check_tree(bad, None) > 0
+
+
+def test_load_default_path_is_generated(tmp_path, monkeypatch):
+    """Without --path the tools render the generated base scene, written
+    inside the checkout."""
+    from rt_rs_tpu.scene import procedural
+    from rt_rs_tpu.utils import cache
+
+    monkeypatch.setattr(cache, "CHECKOUT", str(tmp_path))
+    out = tmp_path / "frame.png"
+    rc = load.main([
+        "--handler-naive", "--width", "16", "--height", "12",
+        "--bounces", "1", "--out", str(out),
+    ])
+    assert rc == 0 and out.exists()
+    assert (tmp_path / "scenes" / "base_seed0.json").exists()
+    assert procedural.base_scene_path(0).startswith(str(tmp_path))
+
+
+def test_compile_cache_dir(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing is set in code;
+    without it the cache is the fixed <checkout>/.jax_cache."""
+    import jax
+
+    from rt_rs_tpu.utils import cache
+
+    monkeypatch.setattr(cache, "CHECKOUT", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+    assert cache.enable_compile_cache() == "/elsewhere"
+    assert jax.config.jax_compilation_cache_dir == before
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    try:
+        path = cache.enable_compile_cache()
+        assert path == str(tmp_path / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

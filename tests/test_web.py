@@ -10,6 +10,18 @@ from rt_rs_tpu.web import WebState, make_server
 
 
 @pytest.fixture(scope="module")
+def scenes_dir(tmp_path_factory):
+    """A scene directory of generated scenes: ``default`` (the 50-triangle
+    scene) and ``teatime`` (the same scene, another seed)."""
+    from rt_rs_tpu.scene.procedural import small_scene
+
+    d = tmp_path_factory.mktemp("web_scenes")
+    small_scene(0).save(str(d / "default.json"))
+    small_scene(1).save(str(d / "teatime.json"))
+    return d
+
+
+@pytest.fixture(scope="module")
 def server(scenes_dir):
     state = WebState(
         str(scenes_dir / "default.json"),
@@ -66,7 +78,7 @@ def test_scene_switch_and_failure_recovery(server):
     s = json.loads(_get(base, "/status")[1])
     assert "failed to load scene" in s["note"]
     before = state.renderer.scene.num_prims
-    assert before == 40  # still default.json
+    assert before == 50  # still default.json
 
     # Valid switch works and clears the note.
     _post(base, "/scene?name=default")
@@ -156,18 +168,15 @@ def test_unloaded_start(scenes_dir):
     assert state.renderer.scene.is_unloaded
     png = state.render_frame_png()
     assert png[:8] == b"\x89PNG\r\n\x1a\n"
-    import io
+    from rt_rs_tpu.utils.image import decode_png
 
-    import numpy as np
-    from PIL import Image
-
-    img = np.asarray(Image.open(io.BytesIO(png)))
+    img = decode_png(png)
     assert (img == 0).all()  # placeholder renders pure black
     # Loading a real scene replaces the placeholder.
     state._pending_scene = "default"
     state.render_frame_png()
     assert not state.renderer.scene.is_unloaded
-    assert state.renderer.scene.num_prims == 40
+    assert state.renderer.scene.num_prims == 50
 
 
 def test_frame_pacing_gate(scenes_dir):
